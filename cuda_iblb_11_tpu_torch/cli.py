@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from cuda_iblb_11_tpu.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.runner import run
 
 
@@ -43,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the run never moves to the CPU unasked)")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cuda", "torch"],
-                   help="'cuda': the hand-written fused kernel; 'torch': its "
-                        "plain PyTorch version; 'auto': cuda on a CUDA "
+                   help="'cuda': the hand-written kernels; 'torch': their "
+                        "plain PyTorch versions; 'auto': cuda on a CUDA "
                         "device, torch on the CPU")
     p.add_argument("--forcing", default="trt_split",
                    choices=["trt_split", "reference"],
@@ -56,8 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "f64; bfloat16 only on the CPU for now)")
     p.add_argument("--temporal", type=_temporal_arg, default="auto",
                    metavar="K",
-                   help="K-step temporal blocking: not yet ported; 'auto' "
-                        "(default) resolves to 1 and records why in SimLog")
+                   help="K-step temporal blocking: K > 1 advances the "
+                        "force-free bulk K steps per pass; 'auto' (default) "
+                        "picks the largest eligible K of 16, 8, 4, 2 on the "
+                        "cuda backend (1 elsewhere) and records why in "
+                        "SimLog")
     p.add_argument("--pattern", default="no_mucus",
                    choices=["no_mucus", "mucus"],
                    help="cilia beat pattern (main.cu:56-74 / :36-54)")

@@ -18,8 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cuda_iblb_11_tpu.core.config import SimConfig
-from cuda_iblb_11_tpu.core.lattice import Q as NQ, RHO_0, W
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.core.lattice import Q as NQ, RHO_0, W
 
 _DTYPES = {
     "float32": torch.float32,

@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 
-from cuda_iblb_11_tpu.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.core.state import (
     FlowState, state_from_numpy, state_to_numpy,
 )

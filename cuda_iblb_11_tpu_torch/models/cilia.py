@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cuda_iblb_11_tpu.core.config import SimConfig
-from cuda_iblb_11_tpu.core.lattice import PI_REF
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.core.lattice import PI_REF
 
 BEAT_SCALE = 111.0
 FINE_SAMPLES = 9600
@@ -76,6 +76,30 @@ def node_arclengths(length: int) -> np.ndarray:
     return k / FINE_SAMPLES
 
 
+def _beat_tables(length: int, pattern: str):
+    """(a_pre, b_pre) [nodes, 7, 2] in f64: a_pre[j, n, coord] =
+    sum_p A[p, coord, n] * arcl_j^(p+1)."""
+    a_mn, b_mn = PATTERNS[pattern]
+    arcl = node_arclengths(length)
+    powers = arcl[:, None] ** np.array([1.0, 2.0, 3.0])[None, :]
+    return (np.einsum("jp,pcn->jnc", powers, a_mn),
+            np.einsum("jp,pcn->jnc", powers, b_mn))
+
+
+def beat_x_bound(length: int, pattern: str = "no_mucus") -> float:
+    """Rigorous upper bound on |beat-frame x| over all phases, maximized
+    over nodes: |x(arcl, phi)| = 111 |a0/2 + sum a_n cos + b_n sin| <=
+    111 (|a0|/2 + sum_n sqrt(a_n^2 + b_n^2)), by Cauchy-Schwarz on each
+    harmonic (cuda_iblb_11_tpu/models/cilia.py:271-282).  It proves each
+    cilium's delta support inside its window of the band super-step
+    (ops/temporal.band_super_geometry)."""
+    a_pre, b_pre = _beat_tables(length, pattern)
+    a, b = a_pre[:, :, 0], b_pre[:, :, 0]
+    per_node = np.abs(a[:, 0]) / 2.0 + np.sqrt(
+        a[:, 1:] ** 2 + b[:, 1:] ** 2).sum(axis=1)
+    return float(BEAT_SCALE * per_node.max())
+
+
 class CiliaModel:
     """Batched beat kinematics for all cilia on one device."""
 
@@ -85,16 +109,13 @@ class CiliaModel:
         self.dtype = dtype          # placement / IB dtype (>= f32)
         self.hp = torch.float64     # kinematics dtype
         self.device = torch.device(device)
-        a_mn, b_mn = PATTERNS[pattern]
-        arcl = node_arclengths(cfg.length)
-        powers = arcl[:, None] ** np.array([1.0, 2.0, 3.0])[None, :]
 
         def t(a):
             return torch.tensor(a, dtype=self.hp, device=self.device)
 
-        # a_pre[j, n, coord] = sum_p A[p, coord, n] * arcl_j^(p+1)
-        self.a_pre = t(np.einsum("jp,pcn->jnc", powers, a_mn))
-        self.b_pre = t(np.einsum("jp,pcn->jnc", powers, b_mn))
+        a_pre, b_pre = _beat_tables(cfg.length, pattern)
+        self.a_pre = t(a_pre)
+        self.b_pre = t(b_pre)
         m = np.arange(cfg.c_num)
         self.offsets = t((m - (cfg.c_num - 1) / 2.0) * cfg.c_space)
         self.shift_x = (cfg.c_space * cfg.c_num) / 2.0

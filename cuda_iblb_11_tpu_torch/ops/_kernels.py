@@ -5,8 +5,9 @@ library with a plain C interface and loaded with ctypes.  The build runs at
 first use, from the sources in the checkout, into ``build/kernels/`` at the
 repository root (listed in .gitignore), keyed by a hash of the sources and
 flags, so a fresh checkout builds itself and an unchanged one reuses its
-library.  There is no fallback: without nvcc a CUDA tensor cannot be
-stepped, and the loader raises.
+library.  Each ``.cu`` compiles in its own nvcc process, all started
+together, and one more links them.  There is no fallback: without nvcc a
+CUDA tensor cannot be stepped, and the loader raises.
 """
 
 from __future__ import annotations
@@ -25,14 +26,24 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 CUDA_ROOT = "/usr/local/cuda"   # the toolkit's usual place
 
 # --fmad=true is nvcc's default, spelled out: multiply-adds contract (the
-# source header of fused_step.cu says what that does to the tolerances).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=true", "-Xptxas", "-v",
-              "-shared", "-Xcompiler", "-fPIC"]
+# source header of csrc/fused_step.cu says what that does to the
+# tolerances).
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "--fmad=true", "-Xptxas", "-v",
+                     "-Xcompiler", "-fPIC"]
 
-_FUSED_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-               + [ctypes.c_double] * 2 + [ctypes.c_int] * 3
-               + [ctypes.c_void_p])
+_P, _LL, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_double)
+# argument types of each C entry point, by name (both dtypes)
+SIGNATURES = {
+    "iblb_fused_step": [_P] * 5 + [_I] * 4 + [_D] * 2 + [_I] * 3 + [_P],
+    "iblb_sharded_step": ([_P, _LL, _P, _LL] + [_P] * 6 + [_I] * 9
+                          + [_D] * 2 + [_I] * 3 + [_P]),
+    "iblb_temporal_bulk": ([_P, _LL, _P, _LL] + [_P] * 5 + [_I] * 4
+                           + [_D] * 2 + [_I] * 3 + [_P]),
+    "iblb_band_super": ([_P, _LL, _P, _LL] + [_P] * 15 + [_I] * 8
+                        + [_D] * 2 + [_I] * 2 + [_P]),
+}
 
 
 class KernelLibrary:
@@ -43,12 +54,20 @@ class KernelLibrary:
         self.build_seconds = build_seconds   # 0.0 when reused from disk
         self.build_log = build_log
         self.lib = ctypes.CDLL(path)
-        for name in ("iblb_fused_step_f32", "iblb_fused_step_f64"):
-            fn = getattr(self.lib, name)
-            fn.argtypes = _FUSED_ARGS
-            fn.restype = ctypes.c_int
+        for name, argtypes in SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(self.lib, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         self.lib.iblb_error_string.argtypes = [ctypes.c_int]
         self.lib.iblb_error_string.restype = ctypes.c_char_p
+
+    def entry(self, name: str, dtype):
+        """The C entry point ``name`` for float32 or float64 tensors."""
+        import torch
+
+        return getattr(self.lib, name + ("_f32" if dtype == torch.float32
+                                         else "_f64"))
 
     def check(self, err: int, what: str) -> None:
         if err:
@@ -90,22 +109,44 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; their joined output, or raise."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    try:
+        for cmd, p in zip(cmds, procs):
+            out, _ = p.communicate(timeout=900)
+            logs.append(" ".join(cmd) + "\n" + out)
+            if p.returncode:
+                failed.append(f"nvcc failed ({p.returncode}):\n{logs[-1]}")
+    finally:   # a timeout leaves no compiler running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "\n".join(logs)
+
+
 def _build(path: str) -> tuple[float, str]:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
+    tag = f"{path}.tmp{os.getpid()}"
     units = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp] + units
+    objs = [f"{tag}.{os.path.basename(u)}.o" for u in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    log = _run([[nvcc] + NVCC_FLAGS + ["-c", u, "-o", o]
+                for u, o in zip(units, objs)])
+    log += "\n" + _run([[nvcc] + ARCH + ["-shared", "-o", tag] + objs])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    for o in objs:
+        os.remove(o)
     with open(path + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + log)
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
+        fh.write(log)
+    os.replace(tag, path)  # atomic: a concurrent loader sees all or nothing
     return seconds, log
 
 
@@ -123,3 +164,85 @@ def load() -> KernelLibrary:
             seconds, log = _build(path)
         _LIBRARY = KernelLibrary(path, seconds, log)
     return _LIBRARY
+
+
+# --- what every wrapper checks before a launch --------------------------
+
+def check_scheme(dtype, walls, forcing, storage, what: str) -> None:
+    """The dtypes, walls, forcings and storages the kernels take."""
+    import torch
+
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"{what} kernel takes float32/float64, got {dtype} (bf16 "
+            "storage: ROADMAP Queue 1 item 2)")
+    if walls.left != "periodic" or walls.bottom != "noslip" \
+            or walls.top not in ("slip", "noslip"):
+        raise NotImplementedError(
+            f"{what} kernel supports periodic x, bottom noslip, top "
+            f"slip|noslip; got {walls}")
+    if forcing not in ("trt_split", "reference"):
+        raise ValueError(f"unknown forcing scheme {forcing!r}")
+    if storage not in ("raw", "deviatoric"):
+        raise ValueError(f"unknown storage {storage!r}")
+
+
+def check_tensor(name: str, t, shape, dtype, device) -> None:
+    """t has the shape, dtype and device, and is contiguous."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype} != {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_planes(name: str, t, shape, dtype, device) -> None:
+    """t is [P, R, X] with rows and columns contiguous (strides (s, X, 1)
+    with s >= R*X): a whole tensor or a row range of a larger state."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype} != {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    _, r, x = t.shape
+    if t.stride(2) != 1 or t.stride(1) != x or t.stride(0) < r * x:
+        raise ValueError(f"{name} must have contiguous rows (strides "
+                         f"(>= {r * x}, {x}, 1), got {t.stride()})")
+
+
+def _span(t) -> tuple[int, int]:
+    n = sum((s - 1) * st for s, st in zip(t.shape, t.stride())) + 1
+    return t.data_ptr(), t.data_ptr() + n * t.element_size()
+
+
+def check_disjoint(name_a: str, a, name_b: str, b) -> None:
+    """The memory a and b span does not overlap: the kernels read one
+    while other blocks write the other."""
+    lo_a, hi_a = _span(a)
+    lo_b, hi_b = _span(b)
+    if lo_a < hi_b and lo_b < hi_a:
+        raise ValueError(f"{name_a} must not alias {name_b}: the kernel "
+                         f"reads {name_b} while other blocks write "
+                         f"{name_a}")
+
+
+def ptr(t):
+    """The device pointer of t, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(name: str, dtype, device, *args) -> None:
+    """Call the C entry point ``name`` on the device's current stream,
+    with ``device`` current during the call (the caller's is restored),
+    and raise on a launch error."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.entry(name, dtype)(*args, stream)
+    lib.check(err, f"{name} launch")

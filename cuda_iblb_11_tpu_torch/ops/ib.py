@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from cuda_iblb_11_tpu.core.lattice import C
+from cuda_iblb_11_tpu_torch.core.lattice import C
 
 # Reference coefficient literals (ImmersedBoundary.cu:36,43).
 _A_INNER = 0.33333

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from cuda_iblb_11_tpu.core.lattice import C
+from cuda_iblb_11_tpu_torch.core.lattice import C
 from cuda_iblb_11_tpu_torch.ops.ib import delta_1d
 
 # Full-f32 matmuls on the card (the GPU form of the JAX _PREC = HIGH).

@@ -18,8 +18,8 @@ from dataclasses import dataclass
 
 import torch
 
-from cuda_iblb_11_tpu.core import lattice
-from cuda_iblb_11_tpu.core.lattice import (
+from cuda_iblb_11_tpu_torch.core import lattice
+from cuda_iblb_11_tpu_torch.core.lattice import (
     C, CS_KERNEL, MIRROR_X, MIRROR_Y, OPPOSITE, RHO_0, W,
 )
 

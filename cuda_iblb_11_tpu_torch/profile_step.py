@@ -1,12 +1,13 @@
 """Where the time of one step goes: host wall time against device time.
 
     python -m cuda_iblb_11_tpu_torch.profile_step [--grids 288x192,2048x2048]
-        [--steps 50] [--out PATH]
+        [--steps 64] [--temporal K|auto] [--out PATH]
 
 For each grid it builds ``MucociliarySim`` on the card (f32, the hand
-kernel), warms it up, then times ``steps`` steps from the initial state on
-the host clock without the profiler, and runs the same steps again under
-``torch.profiler``.  It reports, per step:
+kernels, temporal K as asked: 1 by default, the single-step path), warms
+it up with the same steps, then times ``steps`` steps from the initial
+state on the host clock without the profiler, and runs the same steps
+again under ``torch.profiler``.  It reports, per step:
 
     wall_ms            host wall time of the unprofiled run
     device_busy_ms     union of all device activity (kernels, memsets,
@@ -33,7 +34,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from cuda_iblb_11_tpu.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
 
 # name -> (c_num, c_space, ydim); SimConfig's defaults otherwise
@@ -70,10 +71,12 @@ def _is_outermost_aten(evt):
     return True
 
 
-def profile_sim(sim: MucociliarySim, steps: int, warmup: int = 4) -> dict:
+def profile_sim(sim: MucociliarySim, steps: int) -> dict:
     """The per-step breakdown of ``steps`` steps of ``sim`` (module doc)."""
     dev = sim.device
-    sim.run_chunk(sim.init_state(), warmup)
+    # warm-up: the same steps, so every kernel and every batched shape of
+    # the timed run has run once
+    sim.run_chunk(sim.init_state(), steps)
     _sync(dev)
     st = sim.init_state()
     t0 = time.perf_counter()
@@ -126,21 +129,30 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grids", default="288x192,2048x2048",
                     help=f"comma-separated, of {', '.join(GRIDS)}")
-    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=64,
+                    help="steps per run; a multiple of K keeps the temporal "
+                         "path free of single-step remainders")
+    ap.add_argument("--temporal", default="1",
+                    help="K, or 'auto' (the CLI's default)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
+    temporal = args.temporal if args.temporal == "auto" \
+        else int(args.temporal)
     record = dict(card=_card(), torch=torch.__version__, rows=[])
     print(f"card: {record['card']}", flush=True)
     for name in args.grids.split(","):
         c, s, y = GRIDS[name]
         sim = MucociliarySim(SimConfig(c_num=c, c_space=s, ydim=y),
                              backend="cuda", device="cuda",
-                             dtype="float32")
-        row = dict(grid=name, **profile_sim(sim, args.steps))
+                             dtype="float32", temporal=temporal)
+        rc = sim.resolved_config()
+        row = dict(grid=name, temporal=rc["temporal"],
+                   band_leg=rc["band_leg"], **profile_sim(sim, args.steps))
         record["rows"].append(row)
         busy = row["device_busy_ms"]
-        print(f"{name}: wall {row['wall_ms']:.4f} ms/step, device busy "
+        print(f"{name} K={row['temporal']} {row['band_leg']}: wall "
+              f"{row['wall_ms']:.4f} ms/step, device busy "
               f"{'not measured' if busy is None else f'{busy:.4f} ms'}, "
               f"{row['device_kernels']:.1f} kernels, "
               f"{row['launch_calls']:.1f} launch calls, "

@@ -3,8 +3,9 @@ path: interval-chunked execution, the flux series, optional field + cilia
 snapshots (overlapped with the next chunk), SimLog with the resolved
 configuration and the completion estimate, and npz checkpoint/resume.
 
-The output files come from the JAX package's own writers, so both packages
-write the same bytes for the same values.  --mesh, orbax checkpoints and
+The output files come from the port's copy of the JAX package's writers
+(io/writers.py, io/native.py), so both packages write the same bytes for
+the same values.  --mesh, orbax checkpoints and
 --profile-dir are not ported yet and raise.
 """
 
@@ -17,13 +18,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from cuda_iblb_11_tpu.core.config import SimConfig
-from cuda_iblb_11_tpu.io.writers import (
+from cuda_iblb_11_tpu_torch.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.io.writers import (
     FluxWriter, OutputPaths, SimLog, write_cilia_snapshot,
     write_cilia_snapshot_npz, write_fluid_snapshot,
     write_fluid_snapshot_npz,
 )
-from cuda_iblb_11_tpu.utils.timing import (
+from cuda_iblb_11_tpu_torch.utils.timing import (
     ThroughputMeter, predict_completion, seconds,
 )
 from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
@@ -56,7 +57,7 @@ class _SnapshotPipeline:
                                         write_cilia_snapshot_npz)
             self._ext = ".npz"
         else:
-            from cuda_iblb_11_tpu.io import native
+            from cuda_iblb_11_tpu_torch.io import native
 
             self._fluid = (native.write_fluid_snapshot if native.available()
                            else write_fluid_snapshot)

@@ -16,6 +16,8 @@ from cuda_iblb_11_tpu.models.cilia import CiliaModel as JaxCilia
 from cuda_iblb_11_tpu_torch.models import cilia as tcilia
 from cuda_iblb_11_tpu_torch.models.cilia import CiliaModel
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 RTOL = 1e-12
 CFG = SimConfig(c_num=4, c_space=48)   # XDIM 192, T 100000, p_step 25000
 # it where cilium 3's total it + 3*p_step equals T (phase == T quirk), it

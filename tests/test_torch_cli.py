@@ -15,6 +15,8 @@ import torch
 from cuda_iblb_11_tpu.cli import main as jax_main
 from cuda_iblb_11_tpu_torch.cli import main
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 ARGS = ["1", "4", "48", "1.0", "1.0", "5", "0.0005", "2", "0", "0"]
 FLUX = "Flux/1_4_48_1_1x5-flux.dat"
 SIMLOG = "Raw/4/1/SimLog.txt"
@@ -66,9 +68,39 @@ def test_cli_checkpoint_resume_continues_the_run(tmp_path):
         tmp_path / "b" / SIMLOG).read_text()
 
 
+def test_cli_temporal_k_matches_single_step(tmp_path):
+    # --temporal 4 runs the K-step path (its plain versions on the CPU):
+    # each 25-step interval is six super-steps and one single step.  f64,
+    # so the flux agrees with the single-step run to round-off.
+    args = ARGS + ["--quiet", "--device", "cpu", "--dtype", "float64"]
+    assert main(args + ["--output", str(tmp_path / "k1"),
+                        "--temporal", "1"]) == 0
+    assert main(args + ["--output", str(tmp_path / "k4"),
+                        "--temporal", "4"]) == 0
+    a = np.loadtxt(tmp_path / "k1" / FLUX)
+    b = np.loadtxt(tmp_path / "k4" / FLUX)
+    np.testing.assert_allclose(b, a, rtol=1e-5)
+    log = (tmp_path / "k4" / SIMLOG).read_text()
+    assert "Temporal K: 4" in log and "Kernel path: per_substep" in log
+    # a K = 1 run resumed with K = 4: the same flux, and the SimLog says
+    # the run switched kernel paths
+    half = ARGS[:6] + ["0.00025", "1"] + ARGS[8:]
+    c = str(tmp_path / "c")
+    assert main(half + ["--quiet", "--device", "cpu", "--dtype", "float64",
+                        "--output", c, "--temporal", "1",
+                        "--checkpoint-every", "25"]) == 0
+    assert main(args + ["--output", c, "--temporal", "4", "--resume",
+                        f"{c}/Raw/4/1/checkpoint.npz"]) == 0
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "c" / FLUX), a,
+                               rtol=1e-5)
+    assert ("NOTE: resumed with temporal K=4 (original run: K=1)"
+            in (tmp_path / "c" / SIMLOG).read_text())
+
+
 @pytest.mark.parametrize("flag", [
     ["--mesh", "2,4"], ["--checkpoint-format", "orbax"],
-    ["--profile-dir", "trace"], ["--temporal", "4"],
+    ["--profile-dir", "trace"],
+    ["--temporal", "4", "--ib-x-edge", "reference"],   # the quirk K-step leg
     ["--ib-x-edge", "reference"],
 ])
 def test_cli_unported_modes_refuse(tmp_path, flag, capsys):

@@ -23,6 +23,8 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference,
 )
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 RTOL = 1e-12
 GRID = dict(c_num=2, c_space=64, ydim=64)               # band == ydim == 64
 BAND_GRID = dict(c_num=2, c_space=64, ydim=64, length=16)  # band 48 < 64

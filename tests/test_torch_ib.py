@@ -17,6 +17,8 @@ from cuda_iblb_11_tpu.ops import ib_band as jband
 from cuda_iblb_11_tpu_torch.ops import ib as tib
 from cuda_iblb_11_tpu_torch.ops import ib_band as tband
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 RTOL = 1e-12
 XDIM, BAND, NS = 96, 40, 30
 

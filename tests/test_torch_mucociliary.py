@@ -9,6 +9,7 @@
 (c) checkpoint crossover in both directions, at the tolerance of (a).
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -22,6 +23,8 @@ from cuda_iblb_11_tpu.models.mucociliary import MucociliarySim as JaxSim
 from cuda_iblb_11_tpu_torch import MucociliarySim
 from cuda_iblb_11_tpu_torch.core.state import state_from_numpy
 from cuda_iblb_11_tpu_torch.io import checkpoint as tckpt
+
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 RTOL = 1e-10
 CFG64 = SimConfig(c_num=4, c_space=48, ydim=192, dtype="float64")
@@ -95,7 +98,9 @@ def test_checkpoint_jax_to_port(jax_runs, tmp_path):
     path = str(tmp_path / "jax.npz")
     jckpt.save(path, s10, CFG64)
     state, saved = tckpt.load(path, CFG64)
-    assert saved == CFG64
+    # the port's own SimConfig, field for field the JAX one
+    assert type(saved) is not type(CFG64)
+    assert dataclasses.asdict(saved) == dataclasses.asdict(CFG64)
     st = _port_sim().run_chunk(state, 10)
     _close_state(st, s20)
 
@@ -133,10 +138,13 @@ def test_resolved_config_and_unported_modes():
     rc = sim.resolved_config()
     assert set(rc) == set(jsim.resolved_config())
     assert rc["band_leg"] == "single_step" and rc["temporal"] == 1
-    assert rc["temporal_reason"] == "auto: temporal path not yet ported"
+    # auto takes a K-step leg on the cuda backend only, as JAX on pallas
+    assert (rc["temporal_reason"]
+            == "auto: backend 'torch' has no temporal path")
     assert rc["backend"] == "torch" and "cpu" in rc["backend_reason"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MucociliarySim(CFG64, device="cpu", temporal=4)
+        MucociliarySim(CFG64, device="cpu", temporal=4,
+                       ib_x_edge="reference")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MucociliarySim(CFG64, device="cpu", ib_x_edge="reference")
     with pytest.raises(ValueError):

@@ -10,15 +10,9 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "cuda_iblb_11_tpu_torch")
-# the JAX package's modules with no JAX in them, shared by both packages
-ALLOWED = {
-    "cuda_iblb_11_tpu",                 # package __init__: config + lattice
-    "cuda_iblb_11_tpu.core.config",
-    "cuda_iblb_11_tpu.core.lattice",
-    "cuda_iblb_11_tpu.io.writers",
-    "cuda_iblb_11_tpu.io.native",
-    "cuda_iblb_11_tpu.utils.timing",
-}
+# modules of the JAX package the port may import: none (it keeps its own
+# copies of the JAX-free ones)
+ALLOWED = set()
 
 
 def _imports(path):
@@ -48,12 +42,10 @@ def _port_sources():
 def test_port_sources_import_no_jax():
     bad = []
     for path in _port_sources():
-        # the smoke script reaches the shared modules through the port only
-        allowed = set() if path == SMOKE else ALLOWED
         for mod in _imports(path):
             top = mod.split(".")[0]
             if top == "jax" or (top == "cuda_iblb_11_tpu"
-                                and mod not in allowed):
+                                and mod not in ALLOWED):
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad
     assert len(_port_sources()) > 10

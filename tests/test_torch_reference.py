@@ -15,6 +15,8 @@ from cuda_iblb_11_tpu.core.lattice import W
 from cuda_iblb_11_tpu.ops import reference as jref
 from cuda_iblb_11_tpu_torch.ops import reference as tref
 
+import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
+
 RTOL = 1e-13
 Y, X = 24, 40
 

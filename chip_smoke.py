@@ -7,9 +7,10 @@ Phases; any failure exits non-zero before the final line:
   1. environment: the card, torch, CUDA, nvcc, and the kernel build from
      the sources in this checkout;
   2. every hand kernel against its plain torch version on the card, at
-     the shapes the main path gives it: each grid's K, ghost pads and
-     halo come from the temporal plan that temporal "auto" resolves to
-     there.  Seeded inputs, f32 deviatoric and f64 raw, both top walls, at
+     the shapes the main path gives it: each grid's K, ghost pads, halo
+     and x-tiles come from the temporal plan that temporal "auto"
+     resolves to there (the whole band super-step held to the card's L2).
+     Seeded inputs, f32 deviatoric and f64 raw, both top walls, at
      288 x 192 and 2048 x 2048; the path's own case (f32 deviatoric, top
      slip) at 8192 x 8192:
        B2 fused step at all three (rel-L2 of f, q, fluxcol <= 1e-6 f32,
@@ -20,9 +21,16 @@ Phases; any failure exits non-zero before the final line:
        B4 K = 16 bulk steps at all three (f and flux: the same gates);
        B5 K = 16 band super-step at 2048 x 2048 (16 cilia) and 8192 x 8192
           (64 cilia), real points (f_band and seam halos as above; force
-          and flux <= 1e-5 f32, 1e-11 f64);
+          and flux <= 1e-5 f32, 1e-11 f64), on a plan without the L2
+          budget wherever auto takes B6;
+       B6 the x-tiled band super-step where auto takes it: 2048 x 2048 f64
+          (tile 256, gx 512) and 8192 x 8192 f32 (tile 1,024, gx 512), the
+          same gates, and against B5 on the same inputs (bit-identical or
+          not, reported);
      then each kernel's time at 2048 x 2048 f32 beside its plain version
-     (CUDA events, plain/kernel/kernel/plain), its bytes and its bound;
+     (CUDA events after a spin kernel, plain/kernel/kernel/plain), its
+     bytes and its bound; B5 and B6 also at 8192 x 8192 f32 and 2048 x
+     2048 f64, both against B5's bound there (the same function);
   3. the main path: the port's CLI ``1 6 48 1.0 1.0 5 0.02 4 0 0 --device
      cuda``, 2,000 f32 steps, twice: with --temporal 1 (one B2 launch per
      step) and with the default --temporal auto (K = 16, per-sub-step leg:
@@ -36,7 +44,10 @@ Phases; any failure exits non-zero before the final line:
      2048 x 2048 temporal "auto" (K = 16, band_super_whole: one B5 and one
      B4 launch per 16 steps) against temporal 1, velocity rel-L2 <= 1e-5;
      ms/step and MLUPS of each; then 32 steps at 8192 x 8192 (64 cilia),
-     single-step and temporal "auto", with peak memory.
+     single-step, temporal "auto" (K = 16, band_super_xtiled: 8 B6 tile
+     launches and one B4 launch per 16 steps) and the whole leg (a plan
+     without the L2 budget: B5), each twice in turns, with peak memory;
+     velocity rel-L2 of the x-tiled run against single-step <= 1e-5.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -60,14 +71,15 @@ TIMING_GRID = "2048x2048"
 K = 16                                # the temporal K of the timed calls
 REAL_SIZE_STEPS = 512
 BIG_GRID = ("8192x8192", (64, 128, 8192), 32)
+BIG_TILE = (1024, 512)   # (tile_x, gx) of auto's x-tiled leg there
 MAIN_ARGV = ["1", "6", "48", "1.0", "1.0", "5", "0.02", "4", "0", "0"]
 FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s and float32 operations/s outside the tensor cores.  (Float64
-# outside the tensor cores is 34 TFLOP/s; every printed bound is f32.)
+# bytes/s, and float32 and float64 operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+F64_FLOP_S = 34e12
 # Arithmetic operations per cell, counted from csrc/collide.cuh (a
 # multiply-add counts 2): collide_cell with force 163, without 101; the
 # moments of one cell (moments9) 19.  The IB coupling of one point: the
@@ -93,6 +105,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "cuda_iblb_11_tpu/ops/pallas_step.py:1045"),
     "B5 band_super": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
                       "cuda_iblb_11_tpu/ops/pallas_step.py:1496"),
+    "B6 band_super_tiled": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
+                            "cuda_iblb_11_tpu/ops/pallas_step.py:1582"),
 }
 
 
@@ -120,15 +134,16 @@ def nvcc_version_line(nvcc):
 
 
 def wrappers():
-    """The four kernel wrappers, by kernel name."""
+    """The kernel wrappers, by kernel name."""
     from cuda_iblb_11_tpu_torch.ops.band_super import band_super
+    from cuda_iblb_11_tpu_torch.ops.band_super_tiled import band_super_tiled
     from cuda_iblb_11_tpu_torch.ops.fused_step import (
         fused_substep, sharded_fused_substep,
     )
     from cuda_iblb_11_tpu_torch.ops.temporal_bulk import temporal_bulk
 
     return dict(zip(KERNELS, (fused_substep, sharded_fused_substep,
-                              temporal_bulk, band_super)))
+                              temporal_bulk, band_super, band_super_tiled)))
 
 
 def reset_launches():
@@ -285,41 +300,78 @@ def case_b4(cfg, plan, f, walls, storage):
         K * (COLLIDE_FREE * rows * x + MOMENTS * rows))
 
 
-def case_b5(cfg, plan, f, force, walls, storage, dtype):
-    """The band super-step's call; its operations are the forced collide
-    of the band rows, the force-free collide of only those ghost rows that
-    reach the band by the last sub-step (K - s of them at sub-step s), the
-    band moments, the IB coupling of every point and the flux column."""
+def super_points(cfg, plan, dtype):
+    """The points of K real steps from it = 1000 in the band super-step's
+    layout (the same for B5 and B6)."""
     from cuda_iblb_11_tpu_torch import MucociliarySim
     from cuda_iblb_11_tpu_torch.models.mucociliary import (
         prep_band_super_points,
     )
+
+    sim = MucociliarySim(cfg, backend="cuda", device=DEVICE, dtype=dtype)
+    _, u_s, eps, anchor, frac = sim.step_kinematics(1000, plan.K)
+    return [p[0] for p in prep_band_super_points(
+        cfg, plan.K, plan.halo, sim.aux_dtype, u_s, eps, anchor, frac, 1)]
+
+
+def band_super_counts(cfg, plan, es):
+    """(bytes, operations) of one band super-step call: the forced collide
+    of the band rows, the force-free collide of only those ghost rows that
+    reach the band by the last sub-step (K - s of them at sub-step s), the
+    band moments, the IB coupling of every point and the flux column; B5's
+    and B6's (the same function: a tile's ghost columns are the design's
+    cost, not the function's)."""
+    from cuda_iblb_11_tpu_torch.ops.band_super import NPT
+
+    K, band, x, c = plan.K, cfg.force_band, cfg.xdim, cfg.c_num
+    rows = band + plan.pad_s
+    return (es * (9 * rows * x + 2 * band * x + K * c * NPT * 5
+                  + 9 * band * x + 9 * K * x + 2 * band * x + K)
+            + 4 * 2 * K * c * NPT,
+            K * ((COLLIDE_FORCED + MOMENTS) * band * x + IB_POINT * cfg.ns
+                 + 4 * band) + COLLIDE_FREE * x * K * (K + 1) // 2)
+
+
+def case_b5(cfg, plan, f, force, walls, storage, xs):
+    """The whole-domain band super-step's call (plan: the whole leg)."""
     from cuda_iblb_11_tpu_torch.ops.band_super import (
-        NPT, band_super, band_super_reference,
+        band_super, band_super_reference,
     )
 
-    K = plan.K
-    sim = MucociliarySim(cfg, backend="cuda", device=DEVICE, dtype=dtype,
-                         temporal=K)
-    check(sim.plan == plan, f"B5 plan {sim.plan} != {plan}")
-    _, u_s, eps, anchor, frac = sim.step_kinematics(1000, K)
-    xs = [p[0] for p in prep_band_super_points(
-        cfg, K, plan.halo, sim.aux_dtype, u_s, eps, anchor, frac, 1)]
-    band, x, c = cfg.force_band, cfg.xdim, cfg.c_num
-    rows = band + plan.pad_s
-    f_ext = f[:, :rows]
-    out = f.new_empty((9, band, x))
+    f_ext = f[:, :cfg.force_band + plan.pad_s]
+    out = f.new_empty((9, cfg.force_band, cfg.xdim))
     args = (f_ext, force, *xs, cfg, plan.halo, walls, "trt_split", storage)
-    es = f.element_size()
     return KernelCase(
         lambda: band_super(*args, out=out),
         lambda: band_super_reference(*args),
         ("f_band", "bhalos", "force", "flux"),
-        es * (9 * rows * x + 2 * band * x + K * c * NPT * 5
-              + 9 * band * x + 9 * K * x + 2 * band * x + K)
-        + 4 * 2 * K * c * NPT,
-        K * ((COLLIDE_FORCED + MOMENTS) * band * x + IB_POINT * cfg.ns
-             + 4 * band) + COLLIDE_FREE * x * K * (K + 1) // 2)
+        *band_super_counts(cfg, plan, f.element_size()))
+
+
+def case_b6(cfg, plan, f, force, walls, storage, xs):
+    """The x-tiled band super-step's call (plan: the x-tiled leg), with
+    the bytes its per-tile gathers and interior copies move (each read
+    and written once) in ``copy_bytes``."""
+    from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
+        band_super_tiled, band_super_tiled_reference,
+    )
+
+    band, x, K = cfg.force_band, cfg.xdim, plan.K
+    rows = band + plan.pad_s
+    f_ext = f[:, :rows]
+    out = f.new_empty((9, band, x))
+    args = (f_ext, force, *xs, cfg, plan.halo, plan.tile_x, plan.gx, walls,
+            "trt_split", storage)
+    kc = KernelCase(
+        lambda: band_super_tiled(*args, out=out),
+        lambda: band_super_tiled_reference(*args),
+        ("f_band", "bhalos", "force", "flux"),
+        *band_super_counts(cfg, plan, f.element_size()))
+    n_tiles, txe = x // plan.tile_x, plan.tile_x + 2 * plan.gx
+    kc.copy_bytes = 2 * f.element_size() * n_tiles * (
+        (9 * rows + 2 * band) * txe + (9 * band + 9 * K + 2 * band)
+        * plan.tile_x)
+    return kc
 
 
 def phase_kernels(record):
@@ -327,6 +379,7 @@ def phase_kernels(record):
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
     from cuda_iblb_11_tpu_torch.ops import reference as ref
+    from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
 
     print("== phase 2: every kernel vs its plain version on the card",
           flush=True)
@@ -339,6 +392,9 @@ def phase_kernels(record):
     results = []
     timed = {}   # the first (main path) case of each kernel at the timing
     worst = {}   # grid in f32; each kernel's largest max |err| over all
+    timed_big = {}   # B5 and B6 on the big grid's path case
+    timed_f64 = {}   # and at the timing grid in f64, where auto takes B6
+    b6_vs_b5 = []
 
     def run(kname, gname, dt, storage, top, kc, gates, extra=""):
         got = kc.kern()
@@ -384,44 +440,112 @@ def phase_kernels(record):
                                 th), g, f"flags={list(flags)} pad={plan.pad}")
             run("B4 temporal_bulk", gname, dt, storage, top,
                 case_b4(cfg, plan, f, walls, storage), g, f"K={plan.K}")
-            if plan.band_leg == "band_super_whole":
-                run("B5 band_super", gname, dt, storage, top,
-                    case_b5(cfg, plan, f, force, walls, storage, dtype),
-                    {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]},
+            if plan.pad_s is not None:   # a band super-step leg
+                # B5 on a plan without the L2 budget wherever auto takes
+                # B6: the kernel checks do not depend on the plan's leg
+                whole = plan_temporal(cfg, plan.K, walls, dtype)
+                check(whole.band_leg == "band_super_whole"
+                      and whole.pad_s == plan.pad_s
+                      and whole.halo == plan.halo,
+                      f"{gname} {dt}: whole-leg plan {whole}")
+                xs = super_points(cfg, plan, dtype)
+                gi = {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]}
+                b5 = case_b5(cfg, whole, f, force, walls, storage, xs)
+                run("B5 band_super", gname, dt, storage, top, b5, gi,
                     f"K={plan.K} pad_s={plan.pad_s} halo={plan.halo}")
+            if plan.band_leg == "band_super_xtiled":
+                b6 = case_b6(cfg, plan, f, force, walls, storage, xs)
+                run("B6 band_super_tiled", gname, dt, storage, top, b6, gi,
+                    f"K={plan.K} tile={plan.tile_x} gx={plan.gx}")
+                got6, got5 = b6.kern(), b5.kern()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got6, got5))
+                errs = {n: rel_l2(a, b)
+                        for n, a, b in zip(b6.names, got6, got5)}
+                b6_vs_b5.append(dict(grid=gname, dtype=dt, storage=storage,
+                                     top=top, bit_identical=same,
+                                     rel_l2=errs,
+                                     max_abs=max_abs(got6, got5)))
+                print(f"  B6 vs B5 {gname} {dt} top={top}: bit-identical "
+                      f"{same}; " + " ".join(f"{n}={e:.3e}"
+                                             for n, e in errs.items()),
+                      flush=True)
+                for n, e in errs.items():
+                    gate = gi.get(n, gi["*"])
+                    check(e <= gate, f"B6 vs B5 {gname} {dt} {top}: rel-L2 "
+                                     f"{n} {e} > {gate}")
+                if gname == big_name:
+                    timed_big = {"B5 band_super": b5,
+                                 "B6 band_super_tiled": b6}
+                elif gname == TIMING_GRID and not timed_f64:
+                    timed_f64 = {"B5 band_super": b5,
+                                 "B6 band_super_tiled": b6}
+                del b6, got6, got5
+            if plan.pad_s is not None:
+                del b5, xs
             del f, force
             torch.cuda.empty_cache()
     check(set(worst) == set(KERNELS), f"kernels held: {sorted(worst)}")
+    check(len(timed_big) == 2 and len(timed_f64) == 2,
+          "B5 and B6 were not held at 8192^2 f32 and 2048^2 f64")
     record["kernel_vs_plain"] = results
+    record["b6_vs_b5"] = b6_vs_b5
 
     # times at 2048 x 2048, f32 deviatoric, slip (the first case's inputs;
-    # B3 with the band leg's flags [0, 1, 0])
-    timings = {}
-    for kname, kc in timed.items():
-        for fn in (kc.kern, kc.plain):
-            fn()
-        torch.cuda.synchronize()
-        reps = 50 if kname != "B4 temporal_bulk" else 10
-        t = [cuda_ms(kc.plain, 3), cuda_ms(kc.kern, reps),
-             cuda_ms(kc.kern, reps), cuda_ms(kc.plain, 3)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        bytes_ms = kc.nbytes / HBM_BYTES_S * 1e3
-        flop_ms = kc.nflop / F32_FLOP_S * 1e3
-        timings[kname] = dict(
-            shape=f"{TIMING_GRID} f32 deviatoric", ms=ms, plain_ms=plain_ms,
-            ms_runs=t[1:3], plain_ms_runs=[t[0], t[3]],
-            bytes_per_call=kc.nbytes, flop_per_call=kc.nflop,
-            bound_ms=max(bytes_ms, flop_ms),
-            bound_by="bytes" if bytes_ms >= flop_ms else "operations",
-            max_abs_err=worst[kname])
-        print(f"  {kname} {TIMING_GRID} f32: kernel {ms:.4f} ms "
-              f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms "
-              f"({t[0]:.4f}, {t[3]:.4f}); {kc.nbytes / 1e6:.1f} MB, "
-              f"{kc.nflop / 1e9:.3f} GFLOP per call; bound "
-              f"{timings[kname]['bound_ms']:.4f} ms "
-              f"({timings[kname]['bound_by']})", flush=True)
+    # B3 with the band leg's flags [0, 1, 0]); B5 and B6 also at the big
+    # grid's path case and at 2048 x 2048 f64 raw slip, where each plain
+    # version takes a second or two
+    f32 = f"{TIMING_GRID} f32 deviatoric"
+    timings = {kname: time_case(kname, kc, f32,
+                                10 if kname == "B4 temporal_bulk" else 50,
+                                3, worst)
+               for kname, kc in timed.items()}
+    timings_big = {kname: time_case(kname, kc, f"{big_name} f32 deviatoric",
+                                    10, 1, worst)
+                   for kname, kc in timed_big.items()}
+    timings_f64 = {kname: time_case(kname, kc, f"{TIMING_GRID} f64 raw", 10,
+                                    1, worst, F64_FLOP_S)
+                   for kname, kc in timed_f64.items()}
     record["kernel_timing"] = timings
+    record["kernel_timing_8192"] = timings_big
+    record["kernel_timing_2048_f64"] = timings_f64
+    # each kernel's time at the shapes of its main path: B6's is 8192^2
+    timings["B6 band_super_tiled"] = timings_big["B6 band_super_tiled"]
     return timings
+
+
+def time_case(kname, kc, shape, reps, plain_reps, worst, flop_s=F32_FLOP_S):
+    """A kernel's mean time per call on the card, in turns with its plain
+    version (plain, kernel, kernel, plain), beside its bytes and bound
+    (operations over flop_s, the peak of the inputs' type)."""
+    import torch
+
+    for fn in (kc.kern, kc.plain):
+        fn()
+    torch.cuda.synchronize()
+    t = [cuda_ms(kc.plain, plain_reps), cuda_ms(kc.kern, reps),
+         cuda_ms(kc.kern, reps), cuda_ms(kc.plain, plain_reps)]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    bytes_ms = kc.nbytes / HBM_BYTES_S * 1e3
+    flop_ms = kc.nflop / flop_s * 1e3
+    row = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+               ms_runs=t[1:3], plain_ms_runs=[t[0], t[3]],
+               bytes_per_call=kc.nbytes, flop_per_call=kc.nflop,
+               bound_ms=max(bytes_ms, flop_ms),
+               bound_by="bytes" if bytes_ms >= flop_ms else "operations",
+               max_abs_err=worst[kname])
+    copies = getattr(kc, "copy_bytes", None)
+    if copies is not None:
+        row["tile_copy_bytes_per_call"] = copies
+    print(f"  {kname} {shape}: kernel {ms:.4f} ms "
+          f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}); {kc.nbytes / 1e6:.1f} MB, "
+          f"{kc.nflop / 1e9:.3f} GFLOP per call; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+          + ("" if copies is None else
+             f"; tile gathers and copies {copies / 1e6:.1f} MB"),
+          flush=True)
+    return row
 
 
 # --- phase 3: the CLI, single-step and temporal auto ----------------------
@@ -477,7 +601,8 @@ def phase_main_path(record):
                                 record)
     steps = cfg.iterations
     check(n1 == {"B2 fused_step": steps, "B3 sharded_fused_step": 0,
-                 "B4 temporal_bulk": 0, "B5 band_super": 0},
+                 "B4 temporal_bulk": 0, "B5 band_super": 0,
+                 "B6 band_super_tiled": 0},
           f"--temporal 1 launches {n1}, expected {steps} B2")
     check("Kernel path: single_step" in log1 and "Resolved backend: cuda"
           in log1, "SimLog does not record the single-step cuda path")
@@ -489,7 +614,7 @@ def phase_main_path(record):
     want = {"B2 fused_step": rest * (steps // interval),
             "B3 sharded_fused_step": n_super * K * (steps // interval),
             "B4 temporal_bulk": n_super * (steps // interval),
-            "B5 band_super": 0}
+            "B5 band_super": 0, "B6 band_super_tiled": 0}
     check(na == want, f"--temporal auto launches {na}, expected {want}")
     check("Kernel path: per_substep" in loga
           and "Temporal K: 16 (auto: K=16" in loga,
@@ -531,6 +656,7 @@ def phase_real_size(record):
     import torch
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
 
     print("== phase 4: real size on the card", flush=True)
     steps = REAL_SIZE_STEPS
@@ -556,7 +682,8 @@ def phase_real_size(record):
 
     # the temporal path at 2048^2: B5 + B4 against the single step
     name = TIMING_GRID
-    cfg = SimConfig(c_num=16, c_space=128, ydim=2048)
+    c, s, y = GRIDS[name]
+    cfg = SimConfig(c_num=c, c_space=s, ydim=y)
     sims = {t: MucociliarySim(cfg, backend="cuda", device=DEVICE, temporal=t)
             for t in ("auto", 1)}
     rc = sims["auto"].resolved_config()
@@ -577,7 +704,7 @@ def phase_real_size(record):
             temporal_launches = launches
             want = {"B2 fused_step": 0, "B3 sharded_fused_step": 0,
                     "B4 temporal_bulk": steps // K,
-                    "B5 band_super": steps // K}
+                    "B5 band_super": steps // K, "B6 band_super_tiled": 0}
             check(launches == want, f"{name} auto launches {launches}")
     err = rel_l2(us["auto"], us[1])
     print(f"  {name} velocity rel-L2 temporal auto vs 1 after {steps} "
@@ -588,20 +715,62 @@ def phase_real_size(record):
 
     name, (c, s, y), n = BIG_GRID
     cfg = SimConfig(c_num=c, c_space=s, ydim=y)
-    for t in (1, "auto"):
-        sim = MucociliarySim(cfg, backend="cuda", device=DEVICE, temporal=t)
+    sims = {}
+    for label in ("temporal 1", "temporal auto", "whole leg"):
+        sim = MucociliarySim(cfg, backend="cuda", device=DEVICE,
+                             temporal=1 if label == "temporal 1" else "auto")
+        if label == "temporal auto":
+            p = sim.plan
+            check((p.K, p.band_leg, p.tile_x, p.gx)
+                  == (K, "band_super_xtiled", *BIG_TILE),
+                  f"{name} auto resolved {p}")
+        elif label == "whole leg":
+            # the same K-step path on a plan without the L2 budget
+            sim.plan = plan_temporal(cfg, K, sim.walls, sim.dtype)
+            check(sim.plan.band_leg == "band_super_whole",
+                  f"{name} whole-leg plan {sim.plan}")
         sim.run_chunk(sim.init_state(), max(2, sim.temporal))
+        sims[label] = sim
+    zero = dict.fromkeys(KERNELS, 0)
+    n_super = n // K
+    want = {"temporal 1": {**zero, "B2 fused_step": n},
+            "temporal auto": {**zero, "B4 temporal_bulk": n_super,
+                              "B6 band_super_tiled": n_super * (
+                                  cfg.xdim // BIG_TILE[0])},
+            "whole leg": {**zero, "B4 temporal_bulk": n_super,
+                          "B5 band_super": n_super}}
+    # each leg twice, in turns (single, auto, whole, whole, auto, single):
+    # one 32-step run is short enough for a host hiccup to show
+    us, launched = {}, {}
+    for label in list(sims) + list(sims)[::-1]:
+        sim = sims[label]
         torch.cuda.reset_peak_memory_stats()
+        reset_launches()
         st, sec = _timed_run(sim, n)
-        u = sim.fields(st)[1]
-        check(bool(torch.isfinite(u).all()), f"{name} K={t}: non-finite")
+        launches = read_launches()
+        check(launches == want[label], f"{name} {label} launches "
+                                       f"{launches}, expected {want[label]}")
+        launched[label] = launches
+        if label not in us:
+            us[label] = sim.fields(st)[1]
+            check(bool(torch.isfinite(us[label]).all()),
+                  f"{name} {label}: non-finite")
         rc = sim.resolved_config()
-        _report(rows, name, f"temporal {t}", cfg, st, sec, n,
-                K=rc["temporal"], band_leg=rc["band_leg"],
+        _report(rows, name, label, cfg, st, sec, n, K=rc["temporal"],
+                band_leg=rc["band_leg"], launches=launches,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        del sim, st, u
+        del st
+    del sims
+    errs = {f"{a} vs {b}": rel_l2(us[a], us[b]) for a, b in (
+        ("temporal auto", "temporal 1"), ("whole leg", "temporal 1"),
+        ("temporal auto", "whole leg"))}
+    print(f"  {name} velocity rel-L2 after {n} steps: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
+    rows.append(dict(grid=name, velocity_rel_l2=errs))
+    err = errs["temporal auto vs temporal 1"]
+    check(err <= 1e-5, f"{name}: x-tiled vs single velocity rel-L2 {err}")
     record["real_size"] = rows
-    return temporal_launches
+    return temporal_launches, launched["temporal auto"]
 
 
 def main():
@@ -639,14 +808,15 @@ def main():
 
     timings = phase_kernels(record)
     n_single, n_auto = phase_main_path(record)
-    n_super = phase_real_size(record)
+    n_super, n_xtiled = phase_real_size(record)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
-    # 2048^2 temporal run
+    # 2048^2 temporal run, B6 on the 8192^2 temporal run
     launches = {"B2 fused_step": n_single["B2 fused_step"],
                 "B3 sharded_fused_step": n_auto["B3 sharded_fused_step"],
                 "B4 temporal_bulk": n_auto["B4 temporal_bulk"],
-                "B5 band_super": n_super["B5 band_super"]}
+                "B5 band_super": n_super["B5 band_super"],
+                "B6 band_super_tiled": n_xtiled["B6 band_super_tiled"]}
     for kname, n in launches.items():
         check(n > 0, f"{kname} was not launched on its path")
 

@@ -1,12 +1,26 @@
-// B5: the resident-band super-step, K band sub-steps plus the whole IB
-// coupling behind one call.
+// B5 and B6: the resident-band super-step, K band sub-steps plus the whole
+// IB coupling behind one call.
 //
 // Replaces cuda_iblb_11_tpu/ops/pallas_step.py:_band_super_kernel (:1085)
-// as built by make_band_super_substep (:1509) through _build_band_super_call
-// (:1411, call :1496), the whole-domain (fold=True) layout.  The extended
-// band f_ext [9, rows = band + pad, X] (the band plus a pad >= K row copy
-// of the bulk bottom, the ghost trapezoid) advances K sub-steps; each
-// sub-step s does what :1141-1319 does:
+// as built through _build_band_super_call (:1411, call :1496) in both of
+// its layouts:
+//   B5  make_band_super_substep (:1509), fold=True: the block is the whole
+//       domain; cilium m's window starts at m*c_space - halo and wraps
+//       periodically (win_lo0 = -halo);
+//   B6  make_band_super_substep_tiled (:1582), fold=False: the block is one
+//       x-tile of tile + 2 gx columns (ops/band_super_tiled.py gathers it
+//       and keeps its interior); the tile's j-th lifted cilium has its
+//       window at win_lo0 + j*c_space inside the block, with no wrap and
+//       no fold, and the x-roll of the step wraps at the tile's own width
+//       (garbage that the ghost columns absorb, as :1174-1175 does in a
+//       JAX tile); flux_x = -1 on the tiles that do not own the flux
+//       column.
+// One argument, win_lo0, tells the layouts apart: a window that lies
+// inside the block is never wrapped by the circle arithmetic below, so
+// the same index expressions serve both.  The extended band f_ext
+// [9, rows = band + pad, X] (the band plus a pad >= K row copy of the bulk
+// bottom, the ghost trapezoid) advances K sub-steps; each sub-step s does
+// what :1141-1319 does:
 //   1. collide (collide_cell of collide.cuh), with the force below `band`
 //      only, and expose the f1 of row band-1 as bhalos[s] (the temporal
 //      bulk's seam halo);
@@ -15,14 +29,15 @@
 //   3. take the band moments q = (rho, mom_x, mom_y) [3, band, X];
 //   4. interpolate: each cilium's 128 points (nodes padded with inert
 //      points) see the moments through the 3-point delta, over the window
-//      of W = c_space + 2 halo columns from m*c_space - halo, periodic;
+//      of W = c_space + 2 halo columns from win_lo0 + m*c_space;
 //   5. spread the point forces back over the windows, summing overlaps
 //      (the JAX kernel's overlap-add and periodic fold);
 //   6. take the flux column: the sum over band rows of the half-force
 //      corrected u_x at x = flux_x.
 // Outputs: f_band [9, band, X] (a row range of a larger state allowed),
 // bhalos [K, 9, X], force [2, band, X] (after the last sub-step) and
-// flux [K] (raw sums; the caller divides by 192).
+// flux [K] (raw sums; the caller divides by 192; not written when
+// flux_x = -1).
 //
 // Design, a first version: one launch per stage per sub-step, with the
 // band L2-resident between them (at 2048^2 the extended band is 10.6 MB
@@ -50,6 +65,15 @@
 // points of every window that covers it) takes about 0.061 ms, the
 // interpolation 0.012 ms and the step 0.010 ms (profile_step.py), each
 // launch a dependent pass over the L2-resident band.
+//
+// B6 at 8192^2 (f32, K = 16): the JAX rule with the card's L2 as the
+// budget takes 8 tiles of 1,024 interior + 2 x 512 ghost columns, so each
+// tile's working set (about 50 MB: f_ext and two scratch copies of
+// 144 x 2,048 cells, f_band, q, the force) stays L2-resident across its
+// 3K + 1 launches, where the whole 8192-wide band (about 42 MB of f_ext
+// alone) streams each launch through HBM.  The cost of the design is
+// 2 gx / tile = 2x redundant band columns; its bound is B5's (the same
+// function).
 
 #include "step.cuh"
 
@@ -82,7 +106,7 @@ struct IbArgs {
   int xdim;
   int c_num;
   int cw;            // c_space
-  int halo;
+  int win_lo0;       // window start of point block 0 in block columns
   int wwin;          // W = c_space + 2 halo
   // this sub-step's points: us [2, c, 128], the rest [c, 128]; axl is the
   // window-local anchor x (anchor_x - (m c_space - halo)), ay the anchor y
@@ -111,7 +135,7 @@ __global__ void interp_kernel(const IbArgs<T> b) {
   const int ax = b.axl[i];
   const T fy = b.fy[i];
   const T fx = b.fx[i];
-  const int wstart = m * b.cw - b.halo;
+  const int wstart = b.win_lo0 + m * b.cw;
   const long long plane = (long long)b.band * b.xdim;
   T iq[3] = {T(0.0), T(0.0), T(0.0)};
   for (int yy = ay - 2; yy <= ay + 2; ++yy) {
@@ -135,7 +159,8 @@ __global__ void interp_kernel(const IbArgs<T> b) {
 
 // Stages 5-6: each band cell gathers the forces of the points whose delta
 // support covers it, cilium by cilium in order (every window that covers
-// the cell, under the periodic wrap), then the flux column.
+// the cell, under the periodic wrap; in block order on a tile), then the
+// flux column.
 template <typename T>
 __global__ void __launch_bounds__(TX * TY) spread_kernel(const IbArgs<T> b) {
   __shared__ int s_ax[NPT];
@@ -154,7 +179,7 @@ __global__ void __launch_bounds__(TX * TY) spread_kernel(const IbArgs<T> b) {
   T acc0 = T(0.0);
   T acc1 = T(0.0);
   for (int m = 0; m < b.c_num; ++m) {
-    const int wstart = wrap(m * b.cw - b.halo, b.xdim);
+    const int wstart = wrap(b.win_lo0 + m * b.cw, b.xdim);
     // window [wstart, wstart + W) and tile [x0, x0 + tw), on the circle
     if (wrap(x0 - wstart, b.xdim) >= b.wwin &&
         wrap(wstart - x0, b.xdim) >= tw) {
@@ -189,7 +214,7 @@ __global__ void __launch_bounds__(TX * TY) spread_kernel(const IbArgs<T> b) {
   const long long j = (long long)y * b.xdim + x;
   b.force[j] = acc0;
   b.force[(long long)b.band * b.xdim + j] = acc1;
-  if (x == b.flux_x) {
+  if (x == b.flux_x) {  // never for flux_x = -1
     const long long plane = (long long)b.band * b.xdim;
     b.fluxcol[y] = (b.q[plane + j] + T(0.5) * acc0) / b.q[j];
   }
@@ -202,8 +227,8 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
                const void* fx, const void* ay, const void* fy, void* bhalos,
                void* buf0, void* buf1, void* q, void* amp, void* colbuf,
                void* flux, int rows, int band, int xdim, int K, int c_num,
-               int cw, int halo, int flux_x, double tau, double tau2,
-               int forcing_trt, int deviatoric, void* stream) {
+               int cw, int halo, int win_lo0, int flux_x, double tau,
+               double tau2, int forcing_trt, int deviatoric, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   StepArgs<T> a{};
   a.rows = rows;
@@ -223,7 +248,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   b.xdim = xdim;
   b.c_num = c_num;
   b.cw = cw;
-  b.halo = halo;
+  b.win_lo0 = win_lo0;
   b.wwin = cw + 2 * halo;
   b.amp = (T*)amp;
   b.force = (T*)force_out;
@@ -252,7 +277,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
     b.fx = (const T*)fx + s * pts;
     b.ay = (const int*)ay + s * pts;
     b.fy = (const T*)fy + s * pts;
-    b.fluxcol = (T*)colbuf + (long long)s * band;
+    b.fluxcol = flux_x >= 0 ? (T*)colbuf + (long long)s * band : nullptr;
     interp_kernel<T><<<iblocks, NPT, 0, st>>>(b);
     err = (int)cudaGetLastError();
     if (err) return err;
@@ -260,6 +285,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
     err = (int)cudaGetLastError();
     if (err) return err;
   }
+  if (flux_x < 0) return 0;  // a tile without the flux column
   column_sum_kernel<T, false><<<K, SUM_THREADS, 0, st>>>(
       (const T*)colbuf, band, (T*)flux);
   return (int)cudaGetLastError();
@@ -267,12 +293,15 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
 
 }  // namespace
 
-// C interface (ctypes), as fused_step.cu's.  f_ext [9, rows, X] and f_band
+// C interface (ctypes), as fused_step.cu's.  X is the block's width (the
+// domain for B5, tile + 2 gx for B6); f_ext [9, rows, X] and f_band
 // [9, band, X] have plane strides ext_plane and band_plane (elements) and
 // must not overlap; force_in and force_out [2, band, X] must not overlap;
-// point arrays [K, (2,) c_num, 128] (axl, ay int32); bhalos [K, 9, X];
-// scratch buf0, buf1 [9, rows, X] (buf1 unused for K <= 2, both for
-// K = 1), q [3, band, X], amp [2, c_num, 128], colbuf [K, band]; flux [K].
+// point arrays [K, (2,) c_num, 128] (axl, ay int32; c_num the block's
+// point blocks); bhalos [K, 9, X]; scratch buf0, buf1 [9, rows, X] (buf1
+// unused for K <= 2, both for K = 1), q [3, band, X], amp
+// [2, c_num, 128], colbuf [K, band]; flux [K].  win_lo0 = -halo is B5's
+// layout; flux_x = -1 leaves colbuf and flux unused (may be NULL).
 #define IBLB_BAND_SUPER(NAME, T)                                             \
   extern "C" int NAME(                                                       \
       const void* f_ext, long long ext_plane, void* f_band,                  \
@@ -280,13 +309,14 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
       const void* us, const void* eps, const void* axl, const void* fx,      \
       const void* ay, const void* fy, void* bhalos, void* buf0, void* buf1,  \
       void* q, void* amp, void* colbuf, void* flux, int rows, int band,      \
-      int xdim, int K, int c_num, int cw, int halo, int flux_x, double tau,  \
-      double tau2, int forcing_trt, int deviatoric, void* stream) {          \
+      int xdim, int K, int c_num, int cw, int halo, int win_lo0,             \
+      int flux_x, double tau, double tau2, int forcing_trt, int deviatoric,  \
+      void* stream) {                                                        \
     return band_super<T>(f_ext, ext_plane, f_band, band_plane, force_in,     \
                          force_out, us, eps, axl, fx, ay, fy, bhalos, buf0,  \
                          buf1, q, amp, colbuf, flux, rows, band, xdim, K,    \
-                         c_num, cw, halo, flux_x, tau, tau2, forcing_trt,    \
-                         deviatoric, stream);                                \
+                         c_num, cw, halo, win_lo0, flux_x, tau, tau2,        \
+                         forcing_trt, deviatoric, stream);                   \
   }
 IBLB_BAND_SUPER(iblb_band_super_f32, float)
 IBLB_BAND_SUPER(iblb_band_super_f64, double)

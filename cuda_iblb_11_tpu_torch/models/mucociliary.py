@@ -14,13 +14,16 @@ CUDA device, "torch" on the CPU; the reason is kept in backend_reason).
 temporal: K > 1 runs whole multiples of K steps as K-step super-steps
 (ops/temporal.py says which configurations can): the force-free bulk rows
 above the IB band advance K steps in one call of B4 (ops/temporal_bulk),
-while the band leg steps the band with the IB coupling, either through
-B5 (ops/band_super, "band_super_whole": K sub-steps and the windowed IB in
-one call) or through K calls of B3 (ops/fused_step.sharded_fused_substep)
-with the torch IB of ops/ib_band ("per_substep").  The remaining steps of
-a chunk run single-step.  "auto" picks the largest eligible K of
-(16, 8, 4, 2) on the cuda backend and 1 elsewhere (as JAX resolves it only
-on pallas), with the reason kept in temporal_reason.
+while the band leg steps the band with the IB coupling: through B5
+(ops/band_super, "band_super_whole": K sub-steps and the windowed IB in
+one call), through B6 (ops/band_super_tiled, "band_super_xtiled": the same
+on x-tiles, where the whole band's footprint exceeds the card's L2), or
+through K calls of B3 (ops/fused_step.sharded_fused_substep) with the
+torch IB of ops/ib_band ("per_substep").  The remaining steps of a chunk
+run single-step.  "auto" picks the largest eligible K of (16, 8, 4, 2) on
+the cuda backend and 1 elsewhere (as JAX resolves it only on pallas), with
+the reason kept in temporal_reason.  The plan holds a band super-step to
+the L2 of the sim's device (none on the CPU).
 """
 
 from __future__ import annotations
@@ -37,11 +40,16 @@ from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
     band_super, band_super_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
+    band_super_tiled, band_super_tiled_reference,
+)
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
     sharded_fused_substep_reference,
 )
-from cuda_iblb_11_tpu_torch.ops.temporal import plan_auto, plan_temporal
+from cuda_iblb_11_tpu_torch.ops.temporal import (
+    l2_budget, plan_auto, plan_temporal,
+)
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
@@ -140,16 +148,17 @@ class MucociliarySim:
         self.temporal_requested = temporal
         self.temporal_reason = None
         self.plan = None    # ops/temporal.TemporalPlan when temporal > 1
+        budget = l2_budget(self.device)
         if temporal == "auto":
             if backend == "cuda":
                 self.plan, self.temporal_reason = plan_auto(
-                    cfg, walls, self.dtype, pattern, ib_x_edge)
+                    cfg, walls, self.dtype, pattern, ib_x_edge, budget)
             else:
                 self.temporal_reason = (
                     f"auto: backend {backend!r} has no temporal path")
         elif int(temporal) > 1:
             self.plan = plan_temporal(cfg, int(temporal), walls, self.dtype,
-                                      pattern, ib_x_edge)
+                                      pattern, ib_x_edge, budget)
         elif int(temporal) < 1:
             raise ValueError(f"temporal K must be >= 1, got {temporal}")
         self.temporal = self.plan.K if self.plan else 1
@@ -204,8 +213,14 @@ class MucociliarySim:
             out=out)
 
     def _band_super(self, f_ext, force, xs, out):
+        """B5 on the whole band, or B6 on the plan's x-tiles."""
+        plan = self.plan
+        if plan.band_leg == "band_super_xtiled":
+            return self._pick(band_super_tiled, band_super_tiled_reference)(
+                f_ext, force, *xs, self.cfg, plan.halo, plan.tile_x, plan.gx,
+                self.walls, self.forcing, self.storage, out=out)
         return self._pick(band_super, band_super_reference)(
-            f_ext, force, *xs, self.cfg, self.plan.halo, self.walls,
+            f_ext, force, *xs, self.cfg, plan.halo, self.walls,
             self.forcing, self.storage, out=out)
 
     # --- single-step path
@@ -284,8 +299,8 @@ class MucociliarySim:
 
     def _super_step_fused(self, f, force, q, xs):
         """K steps, band super-step leg (JAX mucociliary.py:420-431): one
-        B5 call for the band (reading the bulk's bottom pad_s rows as its
-        ghost pad), one B4 call for the bulk; both raw flux sums are
+        B5 or B6 call for the band (reading the bulk's bottom pad_s rows as
+        its ghost pad), one B4 call for the bulk; both raw flux sums are
         divided once."""
         band = self.cfg.force_band
         f_new = torch.empty_like(f)
@@ -302,7 +317,7 @@ class MucociliarySim:
         n_super = n // K
         pos, u_s, eps, anchor, frac = self.step_kinematics(state.it, n)
         f, force, q = state.f, state.force, state.q
-        if self.plan.band_leg == "band_super_whole":
+        if self.plan.band_leg != "per_substep":
             xs_all = prep_band_super_points(
                 self.cfg, K, self.plan.halo, self.aux_dtype, u_s, eps,
                 anchor, frac, n_super)

@@ -41,7 +41,7 @@ SIGNATURES = {
                           + [_D] * 2 + [_I] * 3 + [_P]),
     "iblb_temporal_bulk": ([_P, _LL, _P, _LL] + [_P] * 5 + [_I] * 4
                            + [_D] * 2 + [_I] * 3 + [_P]),
-    "iblb_band_super": ([_P, _LL, _P, _LL] + [_P] * 15 + [_I] * 8
+    "iblb_band_super": ([_P, _LL, _P, _LL] + [_P] * 15 + [_I] * 9
                         + [_D] * 2 + [_I] * 2 + [_P]),
 }
 

@@ -1,6 +1,7 @@
 """B5: the resident-band super-step — the port of make_band_super_substep
 (cuda_iblb_11_tpu/ops/pallas_step.py:1509, built by _build_band_super_call
-:1411, kernel _band_super_kernel :1085, the whole-domain fold=True layout).
+:1411, kernel _band_super_kernel :1085, the whole-domain fold=True layout;
+ops/band_super_tiled.py runs the same kernel on x-tiles, B6).
 
     band_super(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo, ...)
         -> (f_band, bhalos, force_new, flux)
@@ -36,18 +37,26 @@ from cuda_iblb_11_tpu_torch.ops.ib import delta_1d
 NPT = 128   # points per cilium block
 
 
-def band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
-                         walls=ref.REFERENCE_WALLS, forcing="trt_split",
-                         storage="raw", out=None):
-    """Plain torch version, transcribed from _band_super_kernel: the IB
-    coupling as dense per-cilium window contractions (a [3 band, W] x
-    [W, 128] interpolation and a [2 band, 128] x [128, W] spread), the
-    windows overlap-added on a strip padded by `halo` columns each side
-    and folded periodically; everything in >= f32.  f_band goes into
-    ``out`` when given."""
+def band_super_block(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
+                     walls=ref.REFERENCE_WALLS, forcing="trt_split",
+                     storage="raw", win_lo0=None, flux_x=None):
+    """Plain torch version of _band_super_kernel on one block of
+    f_ext.shape[-1] columns, transcribed from it: the IB coupling as dense
+    per-window contractions (a [3 band, W] x [W, 128] interpolation and a
+    [2 band, 128] x [128, W] spread per point block), everything in >= f32.
+
+    win_lo0 None is the whole-domain (fold=True) layout: block m's window
+    starts at m c_space - halo, the windows are overlap-added on a strip
+    padded by `halo` columns each side and folded periodically.  An int is
+    the tile (fold=False) layout: block j's window starts at win_lo0 +
+    j c_space inside the block, and the strip is the block.  flux_x is the
+    flux column in block coordinates, or None (no flux: a tile that does
+    not own it).  Returns (f_band, bhalos, force, flux or None), f_band in
+    the compute dtype."""
     K = us.shape[0]
-    band, xdim, cw = cfg.force_band, cfg.xdim, cfg.c_space
-    rows = f_ext.shape[1]
+    band, cw = cfg.force_band, cfg.c_space
+    rows, xdim = f_ext.shape[1], f_ext.shape[2]
+    fold = win_lo0 is None
     wwin = cw + 2 * halo
     cdt = torch.promote_types(f_ext.dtype, torch.float32)
     dev = f_ext.device
@@ -62,34 +71,55 @@ def band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
         f1 = ref.collide_rows(f, frc, cfg.tau, cfg.tau2, forcing, storage)
         bhalos.append(f1[:, band - 1])
         # the edge rows pull themselves: row 0's up-going values are
-        # overwritten by the wall, the top ghost row is garbage
+        # overwritten by the wall, the top ghost row is garbage; x rolls
+        # within the block (on a tile, garbage the ghost columns absorb)
         f = stream_block(f1, f1[:, 0], f1[:, rows - 1])
         for dst, src in BOTTOM_PAIRS:
             f[dst, 0] = f1[src, 0]
-        q, _ = _emit(f, band, cfg.flux_x, storage)           # [3, band, X]
-        qpad = torch.cat([q[..., xdim - halo:], q, q[..., :halo]], dim=-1)
-        fpad = torch.zeros((2, band, xdim + 2 * halo), dtype=cdt, device=dev)
-        for m in range(cfg.c_num):
+        q, _ = _emit(f, band, 0, storage)                    # [3, band, X]
+        if fold:
+            q = torch.cat([q[..., xdim - halo:], q, q[..., :halo]], dim=-1)
+            fpad = torch.zeros((2, band, xdim + 2 * halo), dtype=cdt,
+                               device=dev)
+        else:
+            fpad = torch.zeros((2, band, xdim), dtype=cdt, device=dev)
+        for m in range(us.shape[2]):
             dy = delta_1d((yy - ay[s, m][None]).to(cdt)
                           - fy[s, m][None].to(cdt))           # [band, 128]
             dxw = delta_1d((ww - axl[s, m][:, None]).to(cdt)
                            - fx[s, m][:, None].to(cdt))       # [128, W]
-            lo = m * cw
+            lo = m * cw + (0 if fold else win_lo0)
             # [3, band, 128]
-            t2 = torch.matmul(qpad[:, :, lo:lo + wwin], dxw.T)
+            t2 = torch.matmul(q[:, :, lo:lo + wwin], dxw.T)
             iq = (dy[None] * t2).sum(1)                          # [3, 128]
             em = eps[s, m].to(cdt)
             a_x = (2.0 * (us[s, 0, m].to(cdt) * iq[0] - iq[1])) * em
             a_y = (2.0 * (us[s, 1, m].to(cdt) * iq[0] - iq[2])) * em
             sxy = torch.matmul(torch.stack([dy * a_x, dy * a_y]), dxw)
             fpad[:, :, lo:lo + wwin] += sxy                     # [2, band, W]
-        fo = fpad[:, :, halo:halo + xdim].clone()
-        fo[..., :halo] += fpad[..., halo + xdim:]   # right end wraps left
-        fo[..., xdim - halo:] += fpad[..., :halo]   # left end wraps right
-        c = cfg.flux_x
-        flux.append(((q[1, :, c] + 0.5 * fo[0, :, c]) / q[0, :, c]).sum())
-    return (_into(out, f[:, :band].to(f_ext.dtype)), torch.stack(bhalos), fo,
-            torch.stack(flux))
+        if fold:
+            fo = fpad[:, :, halo:halo + xdim].clone()
+            fo[..., :halo] += fpad[..., halo + xdim:]   # right end wraps left
+            fo[..., xdim - halo:] += fpad[..., :halo]   # left end wraps right
+        else:
+            fo = fpad
+        if flux_x is not None:
+            qc = q[:, :, flux_x + (halo if fold else 0)]
+            flux.append(((qc[1] + 0.5 * fo[0, :, flux_x]) / qc[0]).sum())
+    return (f[:, :band], torch.stack(bhalos), fo,
+            torch.stack(flux) if flux_x is not None else None)
+
+
+def band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
+                         walls=ref.REFERENCE_WALLS, forcing="trt_split",
+                         storage="raw", out=None):
+    """Plain torch version of B5: band_super_block on the whole domain
+    (fold=True, the flux at cfg.flux_x); f_band goes into ``out`` when
+    given."""
+    f_band, bhalos, fo, flux = band_super_block(
+        f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo, walls, forcing,
+        storage, None, cfg.flux_x)
+    return _into(out, f_band.to(f_ext.dtype)), bhalos, fo, flux
 
 
 def band_super(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
@@ -144,7 +174,7 @@ def band_super(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
         fx.data_ptr(), ay.data_ptr(), fy.data_ptr(), bhalos.data_ptr(),
         _kernels.ptr(bufs[0]), _kernels.ptr(bufs[1]), q.data_ptr(),
         amp.data_ptr(), colbuf.data_ptr(), flux.data_ptr(), rows, band,
-        xdim, K, c, cfg.c_space, halo, cfg.flux_x, float(cfg.tau),
+        xdim, K, c, cfg.c_space, halo, -halo, cfg.flux_x, float(cfg.tau),
         float(cfg.tau2), int(forcing == "trt_split"),
         int(storage == "deviatoric"))
     band_super.launches += 1

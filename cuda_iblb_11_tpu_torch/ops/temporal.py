@@ -1,28 +1,37 @@
-"""Which K-step temporal leg a configuration can take: the geometry
-predicates of cuda_iblb_11_tpu/models/mucociliary.py:_setup_temporal
-(:231-297) and of the factories it calls in ops/pallas_step.py
-(pick_band_leg_tile :614, make_temporal_bulk_substep :966,
-_band_super_geometry :1328).
+"""Which K-step temporal leg a configuration can take: the predicates of
+cuda_iblb_11_tpu/models/mucociliary.py:_setup_temporal (:231-297) and of
+the factories it calls in ops/pallas_step.py (pick_band_leg_tile :614,
+make_temporal_bulk_substep :966, _band_super_geometry :1328,
+make_band_super_substep :1509, make_band_super_substep_tiled :1582).
 
 A K-step super-step splits the state into the force band (rows [0, band),
 stepped with the IB coupling) and the force-free bulk (rows [band, Y),
 advanced K steps by B4).  The band leg runs on an extended block, the band
 plus a ghost pad >= K rows copied from the bulk bottom (the ghost
 trapezoid: its top row is garbage that creeps one row down per sub-step),
-and is either
-    band_super_whole  B5: K sub-steps + windowed IB in one call, when each
-                      cilium's window W = c_space + 2 halo fits the domain;
-    per_substep       B3 per sub-step + the torch IB (ops/ib_band.py).
+and is, in _setup_temporal's order, the first of
+    band_super_whole   B5: K sub-steps + windowed IB in one call, when each
+                       cilium's window W = c_space + 2 halo fits the domain
+                       and the band's footprint fits the budget;
+    band_super_xtiled  B6: the same on x-tiles of tile_x + 2 gx columns,
+                       the largest tile whose footprint fits the budget;
+    per_substep        B3 per sub-step + the torch IB (ops/ib_band.py).
 
-Every geometry predicate of the JAX package is kept (periodic x, bottom
+Kept from the JAX package: every geometry predicate (periodic x, bottom
 no-slip, top slip or no-slip; <= 128 nodes per cilium; pad >= K;
 ydim - band >= pad; at least two bulk tiles; c_space + 2 halo <= xdim; the
-halo from beat_x_bound() + 3 rounded up to 128), so on the CPU, where JAX
-runs Pallas in interpret mode, both packages pick the same K, leg and pad.
-The TPU-memory predicates (the VMEM budgets of pallas_step.py:1007-1021 and
-:1561-1564, the tile budget of _pick_tile) and the 128-lane alignments
-(:1340, :1358) are not kept: the port's kernels take any width and keep
-the band in device memory, not in one core's fast memory.
+halo from beat_x_bound() + 3 rounded up to 128), the ghost-column margin
+gx >= W + 8K rounded up to 128 columns, the tile search (a multiple of
+c_space dividing xdim into >= 2 tiles, tile + 2 gx <= xdim) and the
+footprint of one band super-step instance, _band_super_resident (:1365).
+The budget that footprint is held to is the caller's: the card's L2 (the
+model passes torch.cuda.get_device_properties(device).L2_cache_size), and
+none on the CPU, as the JAX package skips its VMEM budget in interpret
+mode; so on the CPU both packages pick the same K, leg and pads.  Not
+kept: the bulk's VMEM ring budget (:1007-1021), _pick_tile's VMEM budget
+and the 128-lane alignments of c_space, the halo and the tile (:1340,
+:1358, :1647): the port's bulk keeps no rings and its kernels take any
+width.
 """
 
 from __future__ import annotations
@@ -39,14 +48,24 @@ AUTO_LADDER = (16, 8, 4, 2)   # largest eligible K wins
 @dataclass(frozen=True)
 class TemporalPlan:
     K: int
-    band_leg: str        # "band_super_whole" | "per_substep"
+    band_leg: str        # "band_super_whole" | "band_super_xtiled" |
+                         # "per_substep"
     pad: int             # ghost rows of the per-sub-step leg
-    pad_s: int | None    # ghost rows of the band super-step (B5 leg only)
-    halo: int | None     # B5 window halo (B5 leg only)
+    pad_s: int | None    # ghost rows of the band super-step (B5/B6 legs)
+    halo: int | None     # window halo of the band super-step (B5/B6 legs)
+    tile_x: int | None = None   # interior columns of a B6 tile
+    gx: int | None = None       # ghost columns each side of a B6 tile
 
 
 def _align(dtype) -> int:
     return 16 if torch.tensor([], dtype=dtype).element_size() == 2 else 8
+
+
+def _itemsizes(dtype) -> tuple[int, int]:
+    """(storage, compute) bytes per value: compute is >= f32."""
+    cdt = torch.promote_types(dtype, torch.float32)
+    return (torch.tensor([], dtype=dtype).element_size(),
+            torch.tensor([], dtype=cdt).element_size())
 
 
 def _pick_tile(ydim: int) -> int:
@@ -116,41 +135,136 @@ def band_super_geometry(cfg, pad: int, K: int, walls,
     return cw, halo
 
 
+def band_super_resident(width: int, rows: int, band: int, fpad_extra: int,
+                        dtype) -> int:
+    """Bytes one band super-step instance of `width` columns keeps
+    resident (pallas_step._band_super_resident :1365): the f state and f1
+    (rows, compute dtype), f_band (storage dtype), a bhalos row block, the
+    force in and out and the overlap-add strip per column, plus the
+    strip's 2 halo extra columns in the whole-domain layout (fpad_extra =
+    2 halo; 0 on a tile, whose width carries its ghost columns)."""
+    it, ic = _itemsizes(dtype)
+    return (9 * rows * 2 * ic + 9 * band * it + 9 * 8 * ic
+            + 2 * band * 2 * ic + 2 * band * ic) * width \
+        + 2 * band * fpad_extra * ic
+
+
+def band_super_reach(cw: int, halo: int, K: int) -> int:
+    """Ghost columns gx of a B6 tile (pallas_step._band_super_reach
+    :1378): edge errors move < 8 columns per sub-step through streaming
+    and the delta reach of the overlapping-window IB, plus one window W
+    of missing force from the cilia left out at each edge; rounded up to
+    128 columns, as the JAX package rounds it on the TPU, so that both
+    packages pick the same tiles."""
+    return -(-(cw + 2 * halo + 8 * K) // 128) * 128
+
+
+def band_super_block_windows(c_num: int, cw: int, halo: int, block_w: int,
+                             gx: int, n_blocks: int):
+    """(lifts, win_lo) per block (pallas_step._band_super_block_windows
+    :1389): every periodic lift mt of a cilium window [mt cw - halo,
+    mt cw - halo + W) lying fully inside the extended block
+    [t block_w - gx, (t+1) block_w + gx), as raw lift indices (cilium
+    mt % c_num), and each window's start in block coordinates."""
+    ww = cw + 2 * halo
+    txe = block_w + 2 * gx
+    lifts, win_lo = [], []
+    for t in range(n_blocks):
+        lo_ext = t * block_w - gx
+        tid, tlo = [], []
+        for mt in range(-c_num, 2 * c_num):
+            w0 = mt * cw - halo
+            if w0 >= lo_ext and w0 + ww <= lo_ext + txe:
+                tid.append(mt)
+                tlo.append(w0 - lo_ext)
+        lifts.append(tuple(tid))
+        win_lo.append(tuple(tlo))
+    return lifts, win_lo
+
+
+def pick_band_tile(cfg, rows: int, K: int, halo: int, dtype,
+                   budget: int | None) -> tuple[int, int]:
+    """(tile_x, gx) of the x-tiled band super-step: the largest tile, a
+    multiple of c_space dividing xdim into >= 2 tiles with tile + 2 gx <=
+    xdim, whose footprint fits the budget (make_band_super_substep_tiled's
+    search, :1643-1662); raises ValueError when none fits."""
+    xdim, cw, band = cfg.xdim, cfg.c_space, cfg.force_band
+    gx = band_super_reach(cw, halo, K)
+
+    def ok(tx):
+        txe = tx + 2 * gx
+        return (xdim % tx == 0 and xdim // tx >= 2 and txe <= xdim
+                and (budget is None or band_super_resident(
+                    txe, rows, band, 0, dtype) <= budget))
+
+    tx = next((m * cw for m in range(xdim // (2 * cw), 0, -1)
+               if ok(m * cw)), None)
+    if tx is None:
+        raise ValueError(f"no x-tile fits the band super-kernel at "
+                         f"XDIM={xdim} (gx={gx}, budget={budget})")
+    return tx, gx
+
+
 def plan_temporal(cfg, K: int, walls, dtype, pattern: str = "no_mucus",
-                  ib_x_edge: str = "periodic") -> TemporalPlan:
-    """The K-step leg for cfg, in _setup_temporal's order; raises
-    ValueError when no K-step leg fits (the auto ladder walks on these)."""
+                  ib_x_edge: str = "periodic",
+                  budget: int | None = None) -> TemporalPlan:
+    """The K-step leg for cfg, in _setup_temporal's order: the whole band
+    super-step, the x-tiled one, the per-sub-step leg.  `budget` (bytes,
+    or None for no limit) bounds a band super-step instance's footprint.
+    Raises ValueError when no K-step leg fits (the auto ladder walks on
+    these)."""
     band = cfg.force_band
-    leg, pad_s, halo = "per_substep", None, None
+    leg, pad_s, halo, tile_x, gx = "per_substep", None, None, None, None
     if ib_x_edge == "periodic":
-        # the resident-band super-step first (the x-tiled B6 that JAX
-        # tries next is not ported; on the CPU it fails wherever this does)
         p = -(-K // 8) * 8
         try:
             if cfg.ydim - band < p:
                 raise ValueError("ydim too small for ghost pad")
             _, halo = band_super_geometry(cfg, p, K, walls, pattern)
-            leg, pad_s = "band_super_whole", p
+            pad_s = p
+            if budget is None or band_super_resident(
+                    cfg.xdim, band + p, band, 2 * halo, dtype) <= budget:
+                leg = "band_super_whole"
+            else:
+                tile_x, gx = pick_band_tile(cfg, band + p, K, halo, dtype,
+                                            budget)
+                leg = "band_super_xtiled"
         except ValueError:
-            halo = None
+            pad_s = halo = None
     _, pad = pick_band_leg_tile(cfg, K, dtype)
     if cfg.ydim - band < pad:
         raise ValueError(
             "temporal blocking needs ydim well above the force band "
             f"(ydim={cfg.ydim}, band={band}, pad={pad})")
     check_bulk(cfg, K, walls, dtype)
-    return TemporalPlan(K=K, band_leg=leg, pad=pad, pad_s=pad_s, halo=halo)
+    return TemporalPlan(K=K, band_leg=leg, pad=pad, pad_s=pad_s, halo=halo,
+                        tile_x=tile_x, gx=gx)
 
 
 def plan_auto(cfg, walls, dtype, pattern: str = "no_mucus",
-              ib_x_edge: str = "periodic"):
+              ib_x_edge: str = "periodic", budget: int | None = None):
     """(plan or None, reason): the largest K of AUTO_LADDER with a leg,
     else None (the single-step path) with the last rejection."""
     err = None
     for K in AUTO_LADDER:
         try:
-            plan = plan_temporal(cfg, K, walls, dtype, pattern, ib_x_edge)
-            return plan, f"auto: K={K} (largest eligible)"
+            plan = plan_temporal(cfg, K, walls, dtype, pattern, ib_x_edge,
+                                 budget)
         except ValueError as e:
             err = e
+            continue
+        reason = f"auto: K={K} (largest eligible)"
+        if plan.band_leg == "band_super_xtiled":
+            reason += (f"; band_super_xtiled, tile {plan.tile_x}, "
+                       f"gx {plan.gx}")
+        return plan, reason
     return None, f"auto: no eligible K ({err})"
+
+
+def l2_budget(device) -> int | None:
+    """The budget of a band super-step on `device`: the card's L2 bytes,
+    None (no limit) off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).L2_cache_size

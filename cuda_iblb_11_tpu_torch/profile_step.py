@@ -3,6 +3,9 @@
     python -m cuda_iblb_11_tpu_torch.profile_step [--grids 288x192,2048x2048]
         [--steps 64] [--temporal K|auto] [--out PATH]
 
+(grids: 288x192, 2048x2048, and 8192x8192 with 64 cilia, where
+--temporal auto takes the x-tiled band leg on an H100).
+
 For each grid it builds ``MucociliarySim`` on the card (f32, the hand
 kernels, temporal K as asked: 1 by default, the single-step path), warms
 it up with the same steps, then times ``steps`` steps from the initial
@@ -38,7 +41,8 @@ from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
 
 # name -> (c_num, c_space, ydim); SimConfig's defaults otherwise
-GRIDS = {"288x192": (6, 48, 192), "2048x2048": (16, 128, 2048)}
+GRIDS = {"288x192": (6, 48, 192), "2048x2048": (16, 128, 2048),
+         "8192x8192": (64, 128, 8192)}
 TOP_KERNELS = 6
 
 

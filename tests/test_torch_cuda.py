@@ -1,7 +1,7 @@
 """Tests that need the card: the hand kernels of csrc/ (B2 and B3
-fused_step.cu, B4 temporal_bulk.cu, B5 band_super.cu) against their plain
-versions on the same inputs on the GPU, and the model's cuda backend
-against its torch backend, single-step and temporal.  They carry the
+fused_step.cu, B4 temporal_bulk.cu, B5 and B6 band_super.cu) against their
+plain versions on the same inputs on the GPU, and the model's cuda backend
+against its torch backend, single-step and temporal (all three band legs).  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file imports no JAX, so on the GPU host
 (which has none) it runs without the JAX conftest:
 
@@ -12,8 +12,14 @@ Tolerances, kernel vs plain version, as rel-L2 of each output: 1e-6 in f32
 differ at f32 round-off) and 1e-12 in f64; for B5's force and flux 1e-5
 and 1e-11, since the kernel gathers the IB stencils in another order than
 the plain version's dense window products and the IB feedback carries the
-difference through K sub-steps.
+difference through K sub-steps.  B6 against B5 on the same inputs is
+held to the same gates: the tiles gather overlapping windows in lift
+order, B5 in cilium order, so cells near the periodic seam may differ at
+round-off.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -26,11 +32,16 @@ from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
     band_super, band_super_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
+    band_super_tiled, band_super_tiled_reference,
+)
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
     sharded_fused_substep_reference,
 )
-from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
+from cuda_iblb_11_tpu_torch.ops.temporal import (
+    band_super_resident, plan_temporal,
+)
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
@@ -229,7 +240,9 @@ def super_inputs(cfg, K, dtype, storage, device, it0=137, seed=4):
     sim = MucociliarySim(cfg, backend="torch", device=device, dtype=dtype,
                          temporal=K)
     plan = sim.plan
-    assert plan.band_leg == "band_super_whole"
+    # the whole leg, or at 12 cilia in f64 the x-tiled one (the whole
+    # band's footprint exceeds the card's L2): both take these inputs
+    assert plan.band_leg in ("band_super_whole", "band_super_xtiled")
     f, force = random_inputs(cfg, storage, dtype, device, seed)
     _, u_s, eps, anchor, frac = sim.step_kinematics(it0, K)
     xs = prep_band_super_points(cfg, K, plan.halo, dtype, u_s, eps, anchor,
@@ -330,3 +343,97 @@ def test_sim_temporal_cuda_matches_torch_backend(card, grid, K):
     assert torch.isfinite(ua).all()
     assert rel_l2(ua, ub) <= 1e-5
     assert abs(float(a.q) - float(b.q)) <= 1e-5 * abs(float(b.q))
+
+
+# --- B6 ------------------------------------------------------------------
+
+TILED = dict(c_num=12, c_space=128, ydim=192)   # 3 tiles of 512 + 2 x 512
+
+
+def xtiled_plan(cfg, K, dtype, walls=ref.REFERENCE_WALLS):
+    """The plan of cfg with a budget one byte below the whole band's
+    footprint: the x-tiled leg, as the card's L2 makes it at 8192^2."""
+    whole = plan_temporal(cfg, K, walls, dtype)
+    fp = band_super_resident(cfg.xdim, cfg.force_band + whole.pad_s,
+                             cfg.force_band, 2 * whole.halo, dtype)
+    plan = plan_temporal(cfg, K, walls, dtype, budget=fp - 1)
+    assert plan.band_leg == "band_super_xtiled"
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 4])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b6_matches_plain_version_and_b5(card, K, dtype, storage, top):
+    cfg = SimConfig(dtype=str(dtype).split(".")[-1], **TILED)
+    plan = xtiled_plan(cfg, K, dtype)
+    f_ext, force, xs, halo = super_inputs(cfg, K, dtype, storage, card)
+    walls = ref.WallSpec(top=top)
+    args = (f_ext, force, *xs, cfg, halo, plan.tile_x, plan.gx, walls,
+            "trt_split", storage)
+    before = band_super_tiled.launches
+    got = band_super_tiled(*args)
+    want = band_super_tiled_reference(*args)
+    torch.cuda.synchronize()
+    assert band_super_tiled.launches == before + cfg.xdim // plan.tile_x
+    g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
+    gates = [("f_band", g), ("bhalos", g), ("force", gi), ("flux", gi)]
+    _check_all(got, want, gates)
+    whole = band_super(f_ext, force, *xs, cfg, halo, walls, "trt_split",
+                       storage)
+    _check_all(got, whole, gates)
+
+
+@pytest.mark.cuda
+def test_b6_refuses_bad_tiles_and_points(card):
+    cfg = SimConfig(**TILED)
+    plan = xtiled_plan(cfg, 2, torch.float32)
+    f_ext, frc, xs, halo = super_inputs(cfg, 2, torch.float32, "deviatoric",
+                                        card)
+    n6 = band_super_tiled.launches
+    with pytest.raises(ValueError, match="multiple of c_space"):
+        band_super_tiled(f_ext, frc, *xs, cfg, halo, 320, plan.gx)
+    with pytest.raises(ValueError, match="ghost margin"):
+        band_super_tiled(f_ext, frc, *xs, cfg, halo, plan.tile_x, 256)
+    with pytest.raises(ValueError):       # the points of 11 cilia, not 12
+        band_super_tiled(f_ext, frc, xs[0][:, :, :11].contiguous(),
+                         *(x[:, :11].contiguous() for x in xs[1:]), cfg,
+                         halo, plan.tile_x, plan.gx)
+    with pytest.raises(ValueError):       # int64 anchors
+        band_super_tiled(f_ext, frc, xs[0], xs[1], xs[2].long(), *xs[3:],
+                         cfg, halo, plan.tile_x, plan.gx)
+    with pytest.raises(ValueError, match="alias"):
+        band_super_tiled(f_ext, frc, *xs, cfg, halo, plan.tile_x, plan.gx,
+                         out=f_ext[:, :cfg.force_band])
+    assert band_super_tiled.launches == n6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sim_xtiled_cuda_matches_torch_backend(card, dtype):
+    cfg = SimConfig(dtype=dtype, **TILED)
+    K = 4
+    states = {}
+    for backend in ("cuda", "torch"):
+        sim = MucociliarySim(cfg, backend=backend, device=card, temporal=K)
+        plan = xtiled_plan(cfg, K, sim.dtype)
+        assert dataclasses.replace(plan, band_leg=sim.plan.band_leg,
+                                   tile_x=sim.plan.tile_x,
+                                   gx=sim.plan.gx) == sim.plan
+        sim.plan = plan
+        assert sim.resolved_config()["band_leg"] == "band_super_xtiled"
+        n0 = (band_super_tiled.launches, band_super.launches,
+              temporal_bulk.launches, fused_substep.launches)
+        states[backend] = (sim, sim.run_chunk(sim.init_state(), 3 * K + 3))
+        n1 = (band_super_tiled.launches, band_super.launches,
+              temporal_bulk.launches, fused_substep.launches)
+        launched = tuple(b - a for a, b in zip(n0, n1))
+        n_tiles = cfg.xdim // plan.tile_x
+        assert launched == ((0, 0, 0, 0) if backend == "torch"
+                            else (3 * n_tiles, 0, 3, 3))
+    (sc, a), (_, b) = states["cuda"], states["torch"]
+    ua, ub = sc.fields(a)[1], sc.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    gate = 1e-5 if dtype == "float32" else 1e-11
+    assert rel_l2(ua, ub) <= gate
+    assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))

@@ -57,3 +57,21 @@ def test_main_parses_temporal(monkeypatch):
         with pytest.raises(Stop):
             profile_step.main(["--grids", "288x192", "--temporal", arg])
         assert seen["temporal"] == want and seen["backend"] == "cuda"
+
+
+def test_main_takes_the_8192_grid(monkeypatch):
+    # the grid on which --temporal auto takes the x-tiled band leg (B6)
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_sim(cfg, **kw):
+        seen["cfg"] = cfg
+        raise Stop
+
+    monkeypatch.setattr(profile_step, "MucociliarySim", fake_sim)
+    with pytest.raises(Stop):
+        profile_step.main(["--grids", "8192x8192", "--temporal", "auto"])
+    cfg = seen["cfg"]
+    assert (cfg.xdim, cfg.ydim, cfg.c_num) == (8192, 8192, 64)

@@ -17,7 +17,11 @@ Phases; any failure exits non-zero before the final line:
           1e-12 f64);
        B3 band-leg step on the extended band (band + the plan's pad) at
           288 x 192 and 2048 x 2048, flags [0,1,0] with a neighbour halo
-          and [0,1,1] (f, f1 row, q, fluxcol: the same gates);
+          and [0,1,1] (f, f1 row, q, fluxcol: the same gates); at the
+          shard width of the mesh legs of phase 5: the 8192 x 8192 (2, 2)
+          per-sub-step leg's band block of x-column 1 (band + pad_b rows,
+          4,096 columns, row band-1 exposed) and the 288 x 192 (2, 1) top
+          shard's per-step block;
        B4 K = 16 bulk steps at all three (f and flux: the same gates);
        B5 K = 16 band super-step at 2048 x 2048 (16 cilia) and 8192 x 8192
           (64 cilia), real points (f_band and seam halos as above; force
@@ -27,10 +31,22 @@ Phases; any failure exits non-zero before the final line:
           (tile 256, gx 512) and 8192 x 8192 f32 (tile 1,024, gx 512), the
           same gates, and against B5 on the same inputs (bit-identical or
           not, reported);
+       B0 on the slabs the mesh legs give it, read in place, each with
+          its own force slab (the same gates): the 8192 x 8192 (2, 2)
+          band block's seam column, the 288 x 192 (2, 1) shard's edge row,
+          and a (2, 2) shard's edge column and row at 2048 x 2048;
+       B7 K = 16 ghost steps of (2, 2) shards at 2048 x 2048, x-extended
+          by 128 columns: the inject shard that owns the flux column and
+          the top shard (its rows above the seam and its flux: the same
+          gates); the inject shard also at 8192 x 8192;
+       B8 the x-sharded band super-step of both x-shards of the (2, 2)
+          mesh at 2048 x 2048 (xl 1,024, gx 512, 14 point blocks), real
+          points (B5's gates);
      then each kernel's time at 2048 x 2048 f32 beside its plain version
      (CUDA events after a spin kernel, plain/kernel/kernel/plain), its
-     bytes and its bound; B5 and B6 also at 8192 x 8192 f32 and 2048 x
-     2048 f64, both against B5's bound there (the same function);
+     bytes and its bound; B5, B6, B7 and B0 (the seam column) also at
+     8192 x 8192 f32, B5 and B6 at 2048 x 2048 f64, both against B5's
+     bound there (the same function);
   3. the main path: the port's CLI ``1 6 48 1.0 1.0 5 0.02 4 0 0 --device
      cuda``, 2,000 f32 steps, twice: with --temporal 1 (one B2 launch per
      step) and with the default --temporal auto (K = 16, per-sub-step leg:
@@ -47,7 +63,15 @@ Phases; any failure exits non-zero before the final line:
      single-step, temporal "auto" (K = 16, band_super_xtiled: 8 B6 tile
      launches and one B4 launch per 16 steps) and the whole leg (a plan
      without the L2 budget: B5), each twice in turns, with peak memory;
-     velocity rel-L2 of the x-tiled run against single-step <= 1e-5.
+     velocity rel-L2 of the x-tiled run against single-step <= 1e-5;
+  5. the mesh on the card, every shard on the one card (f32, temporal
+     "auto" through the runner's mesh resolution): 2048 x 2048 on (2, 2)
+     (B8 + B7) and (2, 1) (B5 + B7), 64 steps, and 8192 x 8192 on (2, 2)
+     (the L2 rule's per_substep_tiled leg: B3 + B0 + B7), 32 steps, each
+     against the single-device auto run: velocity rel-L2 and flux rel
+     <= 1e-5, exact launch counts, ms/step, MLUPS and peak memory; then the
+     CLI with --mesh 2,1, 2,000 steps at 288 x 192: flux within 2e-5 of
+     the f64 golden and within 1e-5 of phase 3's unsharded auto run.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -73,6 +97,18 @@ REAL_SIZE_STEPS = 512
 BIG_GRID = ("8192x8192", (64, 128, 8192), 32)
 BIG_TILE = (1024, 512)   # (tile_x, gx) of auto's x-tiled leg there
 MAIN_ARGV = ["1", "6", "48", "1.0", "1.0", "5", "0.02", "4", "0", "0"]
+MESH = (2, 2)     # the mesh of phase 2's B0, B7 and B8 cases
+# phase 5: (grid, mesh, steps, band leg, launches per super-step by
+# kernel: per x-column for the band leg, per shard for B7)
+MESH_RUNS = (
+    ("2048x2048", (2, 2), 64, "band_super_xsharded",
+     {"B8 band_super_xsharded": 2, "B7 ghost_temporal": 4}),
+    ("2048x2048", (2, 1), 64, "band_super_whole",
+     {"B5 band_super": 1, "B7 ghost_temporal": 2}),
+    ("8192x8192", (2, 2), 32, "per_substep_tiled",
+     {"B3 sharded_fused_step": 2 * K, "B0 collide_rows": 4 * K,
+      "B7 ghost_temporal": 4}),
+)
 FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
@@ -101,12 +137,18 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                       "cuda_iblb_11_tpu/ops/pallas_step.py:542"),
     "B3 sharded_fused_step": ("cuda_iblb_11_tpu_torch/csrc/fused_step.cu",
                               "cuda_iblb_11_tpu/ops/pallas_step.py:2337"),
-    "B4 temporal_bulk": ("cuda_iblb_11_tpu_torch/csrc/temporal_bulk.cu",
+    "B4 temporal_bulk": ("cuda_iblb_11_tpu_torch/csrc/ghost_temporal.cu",
                          "cuda_iblb_11_tpu/ops/pallas_step.py:1045"),
     "B5 band_super": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
                       "cuda_iblb_11_tpu/ops/pallas_step.py:1496"),
     "B6 band_super_tiled": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
                             "cuda_iblb_11_tpu/ops/pallas_step.py:1582"),
+    "B0 collide_rows": ("cuda_iblb_11_tpu_torch/csrc/collide_rows.cu",
+                        "cuda_iblb_11_tpu/ops/pallas_step.py:775"),
+    "B7 ghost_temporal": ("cuda_iblb_11_tpu_torch/csrc/ghost_temporal.cu",
+                          "cuda_iblb_11_tpu/ops/pallas_step.py:2189"),
+    "B8 band_super_xsharded": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
+                               "cuda_iblb_11_tpu/ops/pallas_step.py:1482"),
 }
 
 
@@ -137,13 +179,20 @@ def wrappers():
     """The kernel wrappers, by kernel name."""
     from cuda_iblb_11_tpu_torch.ops.band_super import band_super
     from cuda_iblb_11_tpu_torch.ops.band_super_tiled import band_super_tiled
+    from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
+        band_super_xsharded,
+    )
+    from cuda_iblb_11_tpu_torch.ops.collide_rows import collide_rows
     from cuda_iblb_11_tpu_torch.ops.fused_step import (
         fused_substep, sharded_fused_substep,
     )
+    from cuda_iblb_11_tpu_torch.ops.ghost_temporal import ghost_temporal
     from cuda_iblb_11_tpu_torch.ops.temporal_bulk import temporal_bulk
 
     return dict(zip(KERNELS, (fused_substep, sharded_fused_substep,
-                              temporal_bulk, band_super, band_super_tiled)))
+                              temporal_bulk, band_super, band_super_tiled,
+                              collide_rows, ghost_temporal,
+                              band_super_xsharded)))
 
 
 def reset_launches():
@@ -374,12 +423,164 @@ def case_b6(cfg, plan, f, force, walls, storage, xs):
     return kc
 
 
+def case_b3_mesh(cfg, f, force, walls, storage, mesh, shard, rows=None):
+    """B3 as the sharded path calls it on shard (iy, ix) of `mesh`, at the
+    shard's width, on a contiguous copy of its block: with `rows`, the
+    per-sub-step leg's band block of x-column ix (the shard's first rows
+    rows, bottom wall, row band-1 exposed); else the per-step leg's whole
+    shard with its flags and halo rows (the neighbours' edge rows, here the
+    state's rows scaled by 1.001; none at a wall)."""
+    from cuda_iblb_11_tpu_torch.ops.fused_step import (
+        sharded_fused_substep, sharded_fused_substep_reference,
+    )
+
+    iy, ix = shard
+    yl, xl, band = cfg.ydim // mesh[0], cfg.xdim // mesh[1], cfg.force_band
+    y0, xs = iy * yl, slice(ix * xl, (ix + 1) * xl)
+    f_loc = f[:, y0:y0 + yl, xs].contiguous()
+    fo = force[:, :, xs].contiguous()
+    if rows is not None:
+        blk, flags, expose = f_loc[:, :rows], (0, 1, 0), band - 1
+        halos = (None, None)
+    else:
+        blk, expose = f_loc, None
+        flags = (y0, int(iy == 0), int(iy == mesh[0] - 1))
+        halos = tuple(None if wall else (f[:, r, xs] * 1.001).contiguous()
+                      for wall, r in ((flags[1], y0 - 1),
+                                      (flags[2], (y0 + yl) % cfg.ydim)))
+    n = blk.shape[1]
+    out = f.new_empty(blk.shape)
+    f1out = None if expose is None else f.new_empty((9, xl))
+    names = ("f",) if expose is None else ("f", "f1row")
+    args = (flags, blk, fo, *halos, cfg, walls, "trt_split", storage, expose)
+    forced = min(max(band - y0, 0), n)
+    return KernelCase(
+        lambda: sharded_fused_substep(*args, out=out,
+                                      f1out=f1out)[:len(names)],
+        lambda: sharded_fused_substep_reference(*args)[:len(names)], names,
+        f.element_size() * xl * (18 * n + 2 * band
+                                 + 9 * (len(names) - 1 + sum(
+                                     h is not None for h in halos))),
+        xl * (COLLIDE_FORCED * forced + COLLIDE_FREE * (n - forced)))
+
+
+def case_b0(cfg, f, force, storage, mesh, rows, edge):
+    """An edge line of shard (0, 0) of `mesh`, read in place from a
+    contiguous copy of the shard's first `rows` rows (the whole shard on
+    the per-step leg, the band block on the per-sub-step one): its top row
+    or its last column, with the force of those cells (zero above the band)
+    in a tensor of its own, as parallel/sharded.py builds them."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.collide_rows import (
+        collide_rows, collide_rows_reference,
+    )
+
+    yl, xl, band = cfg.ydim // mesh[0], cfg.xdim // mesh[1], cfg.force_band
+    f_loc = f[:, :yl, :xl].contiguous()[:, :rows]
+    sl = (slice(None), slice(None), slice(xl - 1, xl)) if edge == "column" \
+        else (slice(None), slice(rows - 1, rows), slice(None))
+    slab = f_loc[sl]
+    fo = torch.zeros((2, rows, xl), dtype=f.dtype, device=f.device)
+    nb = min(band, rows)
+    fo[:, :nb] = force[:, :nb, :xl]
+    fslab = fo[sl].contiguous()
+    cells = slab.shape[1] * slab.shape[2]
+    return KernelCase(
+        lambda: (collide_rows(slab, fslab, cfg, "trt_split", storage),),
+        lambda: (collide_rows_reference(slab, fslab, cfg, "trt_split",
+                                        storage),),
+        ("f1",), f.element_size() * 20 * cells, COLLIDE_FORCED * cells)
+
+
+def case_b7(cfg, f, walls, storage, iy, ix, K):
+    """Shard (iy, ix) of the (2, 2) mesh: its block x-extended by 128
+    columns, its 16 ghost rows a side and K seam halos; the kernel's and
+    the plain version's rows above the seam and columns of the shard (and
+    the flux where it owns the flux column)."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
+        ghost_temporal, ghost_temporal_reference,
+    )
+
+    pad, xpad, band = 16, 128, cfg.force_band
+    yl, xl = cfg.ydim // MESH[0], cfg.xdim // MESH[1]
+    y0, x0, dev = iy * yl, ix * xl, f.device
+    cols = torch.arange(x0 - xpad, x0 + xl + xpad, device=dev) % cfg.xdim
+    rows = torch.arange(y0 - pad, y0 + yl + pad, device=dev) % cfg.ydim
+    blk = f[:, rows][:, :, cols]
+    width = blk.shape[2]
+    g = torch.Generator(device="cpu").manual_seed(12)
+    bh = (f[None, :, band - 1][:, :, cols] * (1.0 + 1e-3 * torch.randn(
+        (K, 9, width), generator=g, dtype=torch.float64).to(f))).contiguous()
+    lb = min(max(band - y0, 0), yl)
+    owned = x0 <= cfg.flux_x < x0 + xl
+    flags = (int(y0 <= band < y0 + yl), int(iy == MESH[0] - 1), pad + lb,
+             xpad + min(max(cfg.flux_x - x0, 0), xl - 1), int(owned))
+    args = (flags, blk[:, pad:pad + yl], blk[:, :pad], blk[:, pad + yl:], bh,
+            cfg, walls, "trt_split", storage)
+    out = f.new_empty(blk.shape)
+    own = (slice(None), slice(pad + lb, pad + yl), slice(xpad, xpad + xl))
+
+    def pick(res):
+        return (res[0][own], res[1]) if owned else (res[0][own],)
+
+    cells = blk.shape[1] * width
+    return KernelCase(
+        lambda: pick(ghost_temporal(*args, out=out)),
+        lambda: pick(ghost_temporal_reference(*args)),
+        ("f", "flux")[:1 + owned],
+        f.element_size() * (18 * cells + 9 * K * width + K),
+        K * (COLLIDE_FREE * cells + MOMENTS * (yl - lb)))
+
+
+def case_b8(cfg, f, force, walls, storage, ix, K, dtype):
+    """x-shard ix of the (2, 2) mesh's band super-step: its band block
+    widened by gx ghost columns a side and its point blocks; the bound is
+    B5's count on the shard's own columns and cilia."""
+    import types
+
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
+        band_super_xsharded, band_super_xsharded_reference, shard_points,
+    )
+    from cuda_iblb_11_tpu_torch.ops.temporal import xshard_layout
+
+    n_x, band = MESH[1], cfg.force_band
+    xl = cfg.xdim // n_x
+    lay = xshard_layout(cfg, 16, K, walls, dtype, xl, n_x)
+    xs = super_points(cfg, types.SimpleNamespace(K=K, halo=lay.halo), dtype)
+    cols = torch.arange(ix * xl - lay.gx, (ix + 1) * xl + lay.gx,
+                        device=f.device) % cfg.xdim
+    f_ext = f[:, :band + 16][:, :, cols].contiguous()
+    fo = force[:, :, cols].contiguous()
+    pts = shard_points(lay, xs, cfg, ix, xl)
+    owned = ix * xl <= cfg.flux_x < (ix + 1) * xl
+    flags = (cfg.flux_x - ix * xl + lay.gx if owned else 0, int(owned))
+    args = (flags, f_ext, fo, *pts, cfg, lay, walls, "trt_split", storage)
+    out = f.new_empty((9, band, lay.width))
+    n = 4 if owned else 3       # a shard without the flux column: zeros
+    shard = types.SimpleNamespace(xdim=xl, c_num=cfg.c_num // n_x,
+                                  force_band=band,
+                                  ns=cfg.ns * xl // cfg.xdim)
+    return KernelCase(
+        lambda: band_super_xsharded(*args, out=out)[:n],
+        lambda: band_super_xsharded_reference(*args)[:n],
+        ("f_band", "bhalos", "force", "flux")[:n],
+        *band_super_counts(shard, types.SimpleNamespace(K=K, pad_s=16),
+                           f.element_size()))
+
+
 def phase_kernels(record):
     import torch
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
     from cuda_iblb_11_tpu_torch.ops import reference as ref
-    from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
+    from cuda_iblb_11_tpu_torch.ops.temporal import (
+        l2_budget, plan_sharded, plan_temporal,
+    )
 
     print("== phase 2: every kernel vs its plain version on the card",
           flush=True)
@@ -432,12 +633,41 @@ def phase_kernels(record):
             g = {"*": GATE[dt]}
             run("B2 fused_step", gname, dt, storage, top,
                 case_b2(cfg, f, force, walls, storage), g)
-            if gname != big_name:   # B3 is not on the 8192^2 path
+            if gname != big_name:
                 thalo = (f[:, cfg.force_band + plan.pad] * 1.001).contiguous()
                 for flags, th in (((0, 1, 0), thalo), ((0, 1, 1), None)):
                     run("B3 sharded_fused_step", gname, dt, storage, top,
                         case_b3(cfg, plan, f, force, walls, storage, flags,
                                 th), g, f"flags={list(flags)} pad={plan.pad}")
+            else:
+                # the single-device path takes B6 here, but the (2, 2)
+                # mesh's per-sub-step leg (phase 5) runs B3 at the x-shard
+                # width on each x-column's band block, and B0 on its seam
+                # columns
+                sp = plan_sharded(cfg, K, *MESH, walls, dtype,
+                                  budget=l2_budget(dev))
+                check(sp.band_leg == "per_substep_tiled",
+                      f"{gname} {MESH} plan {sp}")
+                rows = cfg.force_band + sp.pad_b
+                run("B3 sharded_fused_step", gname, dt, storage, top,
+                    case_b3_mesh(cfg, f, force, walls, storage, MESH, (0, 1),
+                                 rows), g,
+                    f"{MESH} x-column 1 band block, pad_b={sp.pad_b}")
+                b0 = case_b0(cfg, f, force, storage, MESH, rows, "column")
+                run("B0 collide_rows", gname, dt, storage, top, b0, g,
+                    f"{MESH} band block seam column")
+                timed_big["B0 collide_rows"] = b0
+                del b0
+            if gname == "288x192":
+                # the per-step leg of the CLI's --mesh 2,1 (phase 5): the
+                # top shard's block and shard (0, 0)'s top edge row
+                run("B3 sharded_fused_step", gname, dt, storage, top,
+                    case_b3_mesh(cfg, f, force, walls, storage, (2, 1),
+                                 (1, 0)), g, "(2, 1) top shard, per step")
+                run("B0 collide_rows", gname, dt, storage, top,
+                    case_b0(cfg, f, force, storage, (2, 1),
+                            cfg.ydim // 2, "row"), g,
+                    "(2, 1) shard edge row")
             run("B4 temporal_bulk", gname, dt, storage, top,
                 case_b4(cfg, plan, f, walls, storage), g, f"K={plan.K}")
             if plan.pad_s is not None:   # a band super-step leg
@@ -475,19 +705,42 @@ def phase_kernels(record):
                     check(e <= gate, f"B6 vs B5 {gname} {dt} {top}: rel-L2 "
                                      f"{n} {e} > {gate}")
                 if gname == big_name:
-                    timed_big = {"B5 band_super": b5,
-                                 "B6 band_super_tiled": b6}
+                    timed_big.update({"B5 band_super": b5,
+                                      "B6 band_super_tiled": b6})
                 elif gname == TIMING_GRID and not timed_f64:
                     timed_f64 = {"B5 band_super": b5,
                                  "B6 band_super_tiled": b6}
                 del b6, got6, got5
             if plan.pad_s is not None:
                 del b5, xs
+            # the sharded path's kernels on (2, 2) shards: at 2048^2 every
+            # case, at 8192^2 B7 on its path's case
+            if gname == TIMING_GRID:
+                for edge in ("column", "row"):
+                    run("B0 collide_rows", gname, dt, storage, top,
+                        case_b0(cfg, f, force, storage, MESH,
+                                cfg.ydim // MESH[0], edge), g,
+                        f"{MESH} shard edge {edge}")
+                gi = {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]}
+                for ix in (1, 0):    # the flux column's shard first
+                    run("B8 band_super_xsharded", gname, dt, storage, top,
+                        case_b8(cfg, f, force, walls, storage, ix, K,
+                                dtype), gi, f"{MESH} x-shard {ix}, K={K}")
+            if gname in (TIMING_GRID, big_name):
+                for iy, ix in ((0, 1), (1, 0)) if gname == TIMING_GRID \
+                        else ((0, 1),):
+                    b7 = case_b7(cfg, f, walls, storage, iy, ix, K)
+                    run("B7 ghost_temporal", gname, dt, storage, top, b7, g,
+                        f"{MESH} shard ({iy}, {ix}), K={K}")
+                if gname == big_name:
+                    timed_big["B7 ghost_temporal"] = b7
+                del b7
             del f, force
             torch.cuda.empty_cache()
     check(set(worst) == set(KERNELS), f"kernels held: {sorted(worst)}")
-    check(len(timed_big) == 2 and len(timed_f64) == 2,
-          "B5 and B6 were not held at 8192^2 f32 and 2048^2 f64")
+    check(len(timed_big) == 4 and len(timed_f64) == 2,
+          "B5, B6, B7 and B0 were not held at 8192^2 f32, B5 and B6 at "
+          "2048^2 f64")
     record["kernel_vs_plain"] = results
     record["b6_vs_b5"] = b6_vs_b5
 
@@ -496,9 +749,10 @@ def phase_kernels(record):
     # grid's path case and at 2048 x 2048 f64 raw slip, where each plain
     # version takes a second or two
     f32 = f"{TIMING_GRID} f32 deviatoric"
+    slow = ("B4 temporal_bulk", "B7 ghost_temporal",
+            "B8 band_super_xsharded")
     timings = {kname: time_case(kname, kc, f32,
-                                10 if kname == "B4 temporal_bulk" else 50,
-                                3, worst)
+                                10 if kname in slow else 50, 3, worst)
                for kname, kc in timed.items()}
     timings_big = {kname: time_case(kname, kc, f"{big_name} f32 deviatoric",
                                     10, 1, worst)
@@ -509,8 +763,10 @@ def phase_kernels(record):
     record["kernel_timing"] = timings
     record["kernel_timing_8192"] = timings_big
     record["kernel_timing_2048_f64"] = timings_f64
-    # each kernel's time at the shapes of its main path: B6's is 8192^2
-    timings["B6 band_super_tiled"] = timings_big["B6 band_super_tiled"]
+    # each kernel's time at the shapes of its main path: B6's is 8192^2,
+    # B0's the 8192^2 (2, 2) mesh's seam column
+    for kname in ("B6 band_super_tiled", "B0 collide_rows"):
+        timings[kname] = timings_big[kname]
     return timings
 
 
@@ -600,9 +856,8 @@ def phase_main_path(record):
     cfg, n1, log1, q1 = run_cli("cli_temporal_1", ["--temporal", "1"], gold,
                                 record)
     steps = cfg.iterations
-    check(n1 == {"B2 fused_step": steps, "B3 sharded_fused_step": 0,
-                 "B4 temporal_bulk": 0, "B5 band_super": 0,
-                 "B6 band_super_tiled": 0},
+    zero = dict.fromkeys(KERNELS, 0)
+    check(n1 == {**zero, "B2 fused_step": steps},
           f"--temporal 1 launches {n1}, expected {steps} B2")
     check("Kernel path: single_step" in log1 and "Resolved backend: cuda"
           in log1, "SimLog does not record the single-step cuda path")
@@ -611,10 +866,9 @@ def phase_main_path(record):
     interval = cfg.interval
     n_super = min(interval, 512) // K
     rest = interval - n_super * K
-    want = {"B2 fused_step": rest * (steps // interval),
+    want = {**zero, "B2 fused_step": rest * (steps // interval),
             "B3 sharded_fused_step": n_super * K * (steps // interval),
-            "B4 temporal_bulk": n_super * (steps // interval),
-            "B5 band_super": 0, "B6 band_super_tiled": 0}
+            "B4 temporal_bulk": n_super * (steps // interval)}
     check(na == want, f"--temporal auto launches {na}, expected {want}")
     check("Kernel path: per_substep" in loga
           and "Temporal K: 16 (auto: K=16" in loga,
@@ -626,7 +880,7 @@ def phase_main_path(record):
                                     for it in FLUX_ITS}
     print(f"  auto vs --temporal 1 flux rel: "
           f"{record['cli_auto_vs_single']}", flush=True)
-    return n1, na
+    return n1, na, qa
 
 
 # --- phase 4: real sizes ------------------------------------------------
@@ -702,9 +956,9 @@ def phase_real_size(record):
                 launches=launches)
         if t == "auto":
             temporal_launches = launches
-            want = {"B2 fused_step": 0, "B3 sharded_fused_step": 0,
+            want = {**dict.fromkeys(KERNELS, 0),
                     "B4 temporal_bulk": steps // K,
-                    "B5 band_super": steps // K, "B6 band_super_tiled": 0}
+                    "B5 band_super": steps // K}
             check(launches == want, f"{name} auto launches {launches}")
     err = rel_l2(us["auto"], us[1])
     print(f"  {name} velocity rel-L2 temporal auto vs 1 after {steps} "
@@ -773,6 +1027,95 @@ def phase_real_size(record):
     return temporal_launches, launched["temporal auto"]
 
 
+# --- phase 5: the mesh on the card --------------------------------------
+
+def phase_mesh(record, q_auto):
+    """Each MESH_RUNS run through the runner's mesh resolution (temporal
+    "auto"), every shard on the one card, against the single-device auto
+    run; then the CLI with --mesh 2,1.  Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
+
+    print("== phase 5: the mesh on the card (shards share it)", flush=True)
+    rows, launched = [], {}
+    for name, mesh, n, leg, per_super in MESH_RUNS:
+        c, s, y = {**GRIDS, BIG_GRID[0]: BIG_GRID[1]}[name]
+        cfg = SimConfig(c_num=c, c_space=s, ydim=y)
+        label = f"{name} mesh {mesh[0]},{mesh[1]}"
+        msim = _make_mesh_sim(cfg, "auto", "trt_split", "auto",
+                              f"{mesh[0]},{mesh[1]}", "periodic",
+                              "no_mucus", torch.device(DEVICE))
+        rc = msim.resolved_config()
+        check(rc["temporal"] == K and rc["band_leg"] == leg
+              and rc["backend"] == "cuda", f"{label} resolved {rc}")
+        single = MucociliarySim(cfg, backend="cuda", device=DEVICE,
+                                temporal="auto")
+        us = {}
+        for run_label, sim in (("mesh", msim), ("single", single)):
+            sim.run_chunk(sim.init_state(), K)            # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            st, sec = _timed_run(sim, n)
+            launches = read_launches()
+            us[run_label] = (sim.fields(st)[1], float(st.q))
+            check(bool(torch.isfinite(us[run_label][0]).all()),
+                  f"{label} {run_label}: non-finite")
+            rc = sim.resolved_config()
+            _report(rows, name, f"{run_label} {rc['mesh'] or 'unsharded'}",
+                    cfg, st, sec, n, K=rc["temporal"],
+                    band_leg=rc["band_leg"], launches=launches,
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if run_label == "mesh":
+                want = {**dict.fromkeys(KERNELS, 0),
+                        **{k: v * (n // K) for k, v in per_super.items()}}
+                check(launches == want, f"{label} launches {launches}, "
+                                        f"expected {want}")
+                launched[label] = launches
+            del st
+        err = rel_l2(us["mesh"][0], us["single"][0])
+        qrel = abs(us["mesh"][1] - us["single"][1]) / abs(us["single"][1])
+        print(f"  {label} vs single-device after {n} steps: velocity "
+              f"rel-L2 {err:.3e}, flux rel {qrel:.3e}", flush=True)
+        rows.append(dict(grid=name, mesh=list(mesh),
+                         velocity_rel_l2_mesh_vs_single=err,
+                         flux_rel_mesh_vs_single=qrel))
+        check(err <= 1e-5 and qrel <= 1e-5,
+              f"{label}: mesh vs single velocity {err}, flux {qrel}")
+        del msim, single, us
+        torch.cuda.empty_cache()
+    record["mesh"] = rows
+
+    gold = np.loadtxt(os.path.join(REPO, "validation",
+                                   "flux_early_f64_c6.dat"))
+    cfg, nm, logm, qm = run_cli("cli_mesh_2x1", ["--mesh", "2,1"], gold,
+                                record)
+    interval, steps = cfg.interval, cfg.iterations
+    n_super = min(interval, 512) // K
+    rest = (interval - n_super * K) * (steps // interval)
+    n_super *= steps // interval
+    want = {**dict.fromkeys(KERNELS, 0),
+            "B3 sharded_fused_step": n_super * K + 2 * rest,
+            "B7 ghost_temporal": 2 * n_super, "B0 collide_rows": 4 * rest}
+    check(nm == want, f"--mesh 2,1 launches {nm}, expected {want}")
+    check("Mesh: 2,1 over 1 device(s)" in logm
+          and "Kernel path: per_substep_tiled" in logm
+          and "Temporal K: 16 (auto: K=16" in logm,
+          "SimLog does not record the mesh, its leg and K")
+    for r in record["cli_mesh_2x1"]["flux"]:
+        check(r["rel"] <= 2e-5, f"--mesh 2,1 flux at it={r['it']} off the "
+                                f"f64 golden by {r['rel']}")
+    rel = {it: abs(qm[it] - q_auto[it]) / abs(q_auto[it]) for it in FLUX_ITS}
+    record["cli_mesh_vs_unsharded"] = rel
+    print(f"  --mesh 2,1 vs unsharded auto flux rel: {rel}", flush=True)
+    check(max(rel.values()) <= 1e-5, f"--mesh 2,1 vs unsharded flux {rel}")
+    launched["cli_mesh_2x1"] = nm
+    return launched
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
@@ -807,16 +1150,23 @@ def main():
         print(f"  {k}: {v}", flush=True)
 
     timings = phase_kernels(record)
-    n_single, n_auto = phase_main_path(record)
+    n_single, n_auto, q_auto = phase_main_path(record)
     n_super, n_xtiled = phase_real_size(record)
+    n_mesh = phase_mesh(record, q_auto)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
-    # 2048^2 temporal run, B6 on the 8192^2 temporal run
+    # 2048^2 temporal run, B6 on the 8192^2 temporal run, B7 and B8 on the
+    # 2048^2 (2, 2) mesh, B0 on the 8192^2 (2, 2) mesh
+    m22 = n_mesh["2048x2048 mesh 2,2"]
     launches = {"B2 fused_step": n_single["B2 fused_step"],
                 "B3 sharded_fused_step": n_auto["B3 sharded_fused_step"],
                 "B4 temporal_bulk": n_auto["B4 temporal_bulk"],
                 "B5 band_super": n_super["B5 band_super"],
-                "B6 band_super_tiled": n_xtiled["B6 band_super_tiled"]}
+                "B6 band_super_tiled": n_xtiled["B6 band_super_tiled"],
+                "B0 collide_rows":
+                    n_mesh["8192x8192 mesh 2,2"]["B0 collide_rows"],
+                "B7 ghost_temporal": m22["B7 ghost_temporal"],
+                "B8 band_super_xsharded": m22["B8 band_super_xsharded"]}
     for kname, n in launches.items():
         check(n > 0, f"{kname} was not launched on its path")
 

@@ -69,7 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="IB stencil at the periodic x edges; 'reference' "
                         "(the quirk mode) is not yet ported")
     p.add_argument("--mesh", default=None, metavar="Y,X",
-                   help="device mesh (not yet ported)")
+                   help="shard the grid over a Y,X mesh spread over the "
+                        "visible devices of --device (shards share a card "
+                        "when there are fewer cards than shards); 'auto' "
+                        "picks a factorization of the visible cards "
+                        "(unsharded on one)")
     p.add_argument("--resume", default=None, help="checkpoint .npz to resume "
                    "(written by either package)")
     p.add_argument("--checkpoint-every", type=int, default=0,

@@ -1,9 +1,9 @@
-// B5 and B6: the resident-band super-step, K band sub-steps plus the whole
-// IB coupling behind one call.
+// B5, B6 and B8: the resident-band super-step, K band sub-steps plus the
+// whole IB coupling behind one call.
 //
 // Replaces cuda_iblb_11_tpu/ops/pallas_step.py:_band_super_kernel (:1085)
-// as built through _build_band_super_call (:1411, call :1496) in both of
-// its layouts:
+// as built through _build_band_super_call (:1411, calls :1482 and :1496)
+// in all of its layouts:
 //   B5  make_band_super_substep (:1509), fold=True: the block is the whole
 //       domain; cilium m's window starts at m*c_space - halo and wraps
 //       periodically (win_lo0 = -halo);
@@ -14,8 +14,14 @@
 //       no fold, and the x-roll of the step wraps at the tile's own width
 //       (garbage that the ghost columns absorb, as :1174-1175 does in a
 //       JAX tile); flux_x = -1 on the tiles that do not own the flux
-//       column.
-// One argument, win_lo0, tells the layouts apart: a window that lies
+//       column;
+//   B8  make_band_super_substep_xsharded (:1727, runtime_flux=True): the
+//       block is one x-shard's xl columns plus gx ghost columns each side
+//       (ops/band_super_xsharded.py); the B6 layout, with the flux column
+//       at the shard's lane (-1 where another shard owns it) and, where xl
+//       is not a c_space multiple, windows wwin = W + c_space wide from
+//       win_lo0 = 0 (the phase-general layout, :1753-1769).
+// Two arguments, win_lo0 and wwin, tell the layouts apart: a window that lies
 // inside the block is never wrapped by the circle arithmetic below, so
 // the same index expressions serve both.  The extended band f_ext
 // [9, rows = band + pad, X] (the band plus a pad >= K row copy of the bulk
@@ -29,7 +35,8 @@
 //   3. take the band moments q = (rho, mom_x, mom_y) [3, band, X];
 //   4. interpolate: each cilium's 128 points (nodes padded with inert
 //      points) see the moments through the 3-point delta, over the window
-//      of W = c_space + 2 halo columns from win_lo0 + m*c_space;
+//      of wwin (= c_space + 2 halo but in B8's phase-general layout)
+//      columns from win_lo0 + m*c_space;
 //   5. spread the point forces back over the windows, summing overlaps
 //      (the JAX kernel's overlap-add and periodic fold);
 //   6. take the flux column: the sum over band rows of the half-force
@@ -107,7 +114,7 @@ struct IbArgs {
   int c_num;
   int cw;            // c_space
   int win_lo0;       // window start of point block 0 in block columns
-  int wwin;          // W = c_space + 2 halo
+  int wwin;          // window width: c_space + 2 halo (+ c_space)
   // this sub-step's points: us [2, c, 128], the rest [c, 128]; axl is the
   // window-local anchor x (anchor_x - (m c_space - halo)), ay the anchor y
   const T* us;
@@ -227,7 +234,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
                const void* fx, const void* ay, const void* fy, void* bhalos,
                void* buf0, void* buf1, void* q, void* amp, void* colbuf,
                void* flux, int rows, int band, int xdim, int K, int c_num,
-               int cw, int halo, int win_lo0, int flux_x, double tau,
+               int cw, int wwin, int win_lo0, int flux_x, double tau,
                double tau2, int forcing_trt, int deviatoric, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   StepArgs<T> a{};
@@ -236,7 +243,6 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   a.band = band;
   a.y0 = 0;
   a.is_bottom = 1;
-  a.is_top = 0;
   a.expose_row = band - 1;
   a.q_rows = band;
   a.q = (T*)q;
@@ -249,7 +255,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   b.c_num = c_num;
   b.cw = cw;
   b.win_lo0 = win_lo0;
-  b.wwin = cw + 2 * halo;
+  b.wwin = wwin;
   b.amp = (T*)amp;
   b.force = (T*)force_out;
   b.flux_x = flux_x;
@@ -287,7 +293,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   }
   if (flux_x < 0) return 0;  // a tile without the flux column
   column_sum_kernel<T, false><<<K, SUM_THREADS, 0, st>>>(
-      (const T*)colbuf, band, (T*)flux);
+      (const T*)colbuf, band, 0, band, (T*)flux);
   return (int)cudaGetLastError();
 }
 
@@ -300,8 +306,10 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
 // point arrays [K, (2,) c_num, 128] (axl, ay int32; c_num the block's
 // point blocks); bhalos [K, 9, X]; scratch buf0, buf1 [9, rows, X] (buf1
 // unused for K <= 2, both for K = 1), q [3, band, X], amp
-// [2, c_num, 128], colbuf [K, band]; flux [K].  win_lo0 = -halo is B5's
-// layout; flux_x = -1 leaves colbuf and flux unused (may be NULL).
+// [2, c_num, 128], colbuf [K, band]; flux [K].  wwin is the window width
+// (c_space + 2 halo, or c_space wider in B8's phase-general layout);
+// win_lo0 = -halo is B5's layout; flux_x = -1 leaves colbuf and flux
+// unused (may be NULL).
 #define IBLB_BAND_SUPER(NAME, T)                                             \
   extern "C" int NAME(                                                       \
       const void* f_ext, long long ext_plane, void* f_band,                  \
@@ -309,13 +317,13 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
       const void* us, const void* eps, const void* axl, const void* fx,      \
       const void* ay, const void* fy, void* bhalos, void* buf0, void* buf1,  \
       void* q, void* amp, void* colbuf, void* flux, int rows, int band,      \
-      int xdim, int K, int c_num, int cw, int halo, int win_lo0,             \
+      int xdim, int K, int c_num, int cw, int wwin, int win_lo0,             \
       int flux_x, double tau, double tau2, int forcing_trt, int deviatoric,  \
       void* stream) {                                                        \
     return band_super<T>(f_ext, ext_plane, f_band, band_plane, force_in,     \
                          force_out, us, eps, axl, fx, ay, fy, bhalos, buf0,  \
                          buf1, q, amp, colbuf, flux, rows, band, xdim, K,    \
-                         c_num, cw, halo, win_lo0, flux_x, tau, tau2,        \
+                         c_num, cw, wwin, win_lo0, flux_x, tau, tau2,        \
                          forcing_trt, deviatoric, stream);                   \
   }
 IBLB_BAND_SUPER(iblb_band_super_f32, float)

@@ -2,10 +2,11 @@
 //
 // Replaces cuda_iblb_11_tpu/ops/pallas_step.py:_collide_tile (:642), which
 // every Pallas kernel of the JAX package routes its collision through.
-// The fused step (B2/B3, fused_step.cu), the temporal bulk (B4,
-// temporal_bulk.cu) and the band super-step (B5, band_super.cu) all call
-// collide_cell below, so the seam halos one kernel hands another round
-// exactly as the consumer would have computed them (an f1 value that
+// The fused step (B2/B3, fused_step.cu), the K-step bulk (B4/B7,
+// ghost_temporal.cu), the band super-step (B5/B6/B8, band_super.cu) and
+// the slab collide (B0, collide_rows.cu) all call collide_cell below, so
+// the seam halos one kernel hands another round exactly as the consumer
+// would have computed them (an f1 value that
 // merely rounds differently at the seam is amplified by the stiff IB
 // feedback, docs/DESIGN.md:229-232).  Every source is built with
 // --fmad=true (ops/_kernels.py), so all kernels contract the same way.

@@ -42,7 +42,7 @@ int fused_step(const void* f_in, const void* force, void* f_out, void* q,
   a.band = band;
   a.y0 = 0;
   a.is_bottom = 1;
-  a.is_top = 1;
+  a.top_row = ydim - 1;
   a.top_noslip = top_noslip;
   a.expose_row = -1;
   a.q_rows = band;
@@ -73,7 +73,7 @@ int sharded_step(const void* f_in, long long in_plane, void* f_out,
   a.band = band;
   a.y0 = y0;
   a.is_bottom = is_bottom;
-  a.is_top = is_top;
+  a.top_row = is_top ? rows - 1 : -1;
   a.top_noslip = top_noslip;
   a.bhalo = (const T*)bhalo;
   a.thalo = (const T*)thalo;

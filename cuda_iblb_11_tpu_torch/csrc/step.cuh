@@ -1,6 +1,6 @@
 // The collide + pull-stream step over a block of rows, shared by B2/B3
-// (fused_step.cu), B4 (temporal_bulk.cu) and the first stage of each B5
-// sub-step (band_super.cu).
+// (fused_step.cu), B4 and B7 (ghost_temporal.cu) and the first stage of
+// each B5/B6/B8 sub-step (band_super.cu).
 //
 // Replaces the body of cuda_iblb_11_tpu/ops/pallas_step.py:_pipelined_kernel
 // (:181), both as make_fused_substep builds it (B2: the whole domain) and
@@ -15,8 +15,11 @@
 //      row below the block is the bhalo row and the row above it the
 //      thalo row (each [9, X], already post-collision; zeros when absent);
 //   3. wall fix-ups from the same cell's own f1: bottom (r = 0, when
-//      is_bottom) halfway bounce-back 2<-4 5<-7 6<-8; top (r = rows-1,
-//      when is_top) slip 4<-2 8<-5 7<-6 or no-slip 4<-2 7<-5 8<-6;
+//      is_bottom) halfway bounce-back 2<-4 5<-7 6<-8; top (r = top_row,
+//      usually rows-1, -1 for none) slip 4<-2 8<-5 7<-6 or no-slip 4<-2
+//      7<-5 8<-6; and the seam (r = inject_row, -1 for none), whose
+//      up-going pulls 2, 5, 6 come from the injected row ([9, X], the f1
+//      of the row below the block's bulk) instead of row r-1 (B7);
 //   4. outputs: the streamed rows r < out_rows; the f1 of row expose_row
 //      ([9, X], the temporal bulk's seam halo); q = (rho, mom_x, mom_y)
 //      for rows r < q_rows; fluxcol = (rho, mom_x) at x = flux_x for every
@@ -28,7 +31,10 @@
 // post-stream values from shared memory.  Ragged tiles are masked; any
 // rows >= 1 and any X work.  The input and output rows are read and written
 // with a plane stride of their own, so a block may be a row range of a
-// larger [9, Y, X] state.  f is read from one buffer and written to
+// larger [9, Y, X] state; the rows may also come from three buffers, rows
+// [0, lo_rows) from f_lo, [hi_start, rows) from f_hi and the rest from
+// f_in (B7's first sub-step reads the ghost rows and the shard's own rows
+// where they lie).  f is read from one buffer and written to
 // another: CUDA blocks run in no order, so the TPU kernel's in-place update
 // (safe there only by its lag-1 grid order, pallas_step.py:548) is not
 // used.
@@ -54,6 +60,12 @@ template <typename T>
 struct StepArgs {
   const T* f_in;
   long long in_plane;     // elements between populations of f_in
+  const T* f_lo = nullptr;  // rows [0, lo_rows) (lo_rows = 0: none)
+  long long lo_plane = 0;
+  int lo_rows = 0;
+  const T* f_hi = nullptr;  // rows [hi_start, rows)
+  long long hi_plane = 0;
+  int hi_start = 1 << 30;
   T* f_out;
   long long out_plane;
   int out_rows;           // rows written to f_out (<= rows)
@@ -63,10 +75,12 @@ struct StepArgs {
   int band;
   int y0;                 // global row of local row 0
   int is_bottom;
-  int is_top;
+  int top_row = -1;       // local row of the top wall, or -1
   int top_noslip;
   const T* bhalo;         // [9, X] or nullptr (zeros)
   const T* thalo;         // [9, X] or nullptr (zeros)
+  int inject_row = -1;    // local row whose up-going pulls read inject
+  const T* inject = nullptr;  // [9, X]
   int expose_row;         // local row, or -1
   T* f1out;               // [9, X]
   int q_rows;             // 0: no q
@@ -92,10 +106,22 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
     if (gx < 0) gx += xdim;
     T f1[9];
     if (r >= 0 && r < a.rows) {
-      const long long j = (long long)r * xdim + gx;
+      const T* src = a.f_in;
+      long long plane = a.in_plane;
+      int rs = r - a.lo_rows;
+      if (r < a.lo_rows) {
+        src = a.f_lo;
+        plane = a.lo_plane;
+        rs = r;
+      } else if (r >= a.hi_start) {
+        src = a.f_hi;
+        plane = a.hi_plane;
+        rs = r - a.hi_start;
+      }
+      const long long js = (long long)rs * xdim + gx;
       T fi[9];
 #pragma unroll
-      for (int d = 0; d < 9; ++d) fi[d] = a.f_in[d * a.in_plane + j];
+      for (int d = 0; d < 9; ++d) fi[d] = src[d * plane + js];
       T gxv = T(0.0);
       T gyv = T(0.0);
       const int yg = a.y0 + r;
@@ -141,7 +167,14 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
     p[5] = s[7][ly][lx];
     p[6] = s[8][ly][lx];
   }
-  if (r == a.rows - 1 && a.is_top) {
+  if (r == a.inject_row) {  // the seam: pull (r - 1, x - cx) from inject
+    const int xm = x == 0 ? xdim - 1 : x - 1;
+    const int xp = x == xdim - 1 ? 0 : x + 1;
+    p[2] = a.inject[2 * xdim + x];
+    p[5] = a.inject[5 * xdim + xm];
+    p[6] = a.inject[6 * xdim + xp];
+  }
+  if (r == a.top_row) {
     p[4] = s[2][ly][lx];
     if (a.top_noslip) {  // bounce-back
       p[7] = s[5][ly][lx];
@@ -184,21 +217,23 @@ int launch_step(const StepArgs<T>& a, bool forced, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Per-sub-step flux sums without atomics: block s sums column s of
-// cols [K, n] (kRatio: cols [K, 2, n], summing cols[s, 1, r] / cols[s, 0, r],
-// the u_x = mom_x / rho of a flux column) into out[s].  Each thread strides
-// the rows in a fixed order and a fixed-shape tree joins the threads, so
-// the sum is the same in every run.
+// Per-sub-step flux sums without atomics: block s sums n values of the
+// column at cols + s * stride (kRatio: summing c[plane + r] / c[r], the
+// u_x = mom_x / rho of a flux column whose rho and mom_x lie `plane`
+// apart) into out[s].  Each thread strides the rows in a fixed order and
+// a fixed-shape tree joins the threads, so the sum is the same in every
+// run.
 constexpr int SUM_THREADS = 256;
 
 template <typename T, bool kRatio>
 __global__ void __launch_bounds__(SUM_THREADS)
-column_sum_kernel(const T* __restrict__ cols, int n, T* __restrict__ out) {
+column_sum_kernel(const T* __restrict__ cols, int n, long long plane,
+                  long long stride, T* __restrict__ out) {
   __shared__ T part[SUM_THREADS];
-  const T* c = cols + (long long)blockIdx.x * (kRatio ? 2 : 1) * n;
+  const T* c = cols + (long long)blockIdx.x * stride;
   T acc = T(0.0);
   for (int r = threadIdx.x; r < n; r += SUM_THREADS) {
-    acc += kRatio ? c[n + r] / c[r] : c[r];
+    acc += kRatio ? c[plane + r] / c[r] : c[r];
   }
   part[threadIdx.x] = acc;
   __syncthreads();

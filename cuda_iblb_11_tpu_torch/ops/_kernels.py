@@ -39,10 +39,12 @@ SIGNATURES = {
     "iblb_fused_step": [_P] * 5 + [_I] * 4 + [_D] * 2 + [_I] * 3 + [_P],
     "iblb_sharded_step": ([_P, _LL, _P, _LL] + [_P] * 6 + [_I] * 9
                           + [_D] * 2 + [_I] * 3 + [_P]),
-    "iblb_temporal_bulk": ([_P, _LL, _P, _LL] + [_P] * 5 + [_I] * 4
-                           + [_D] * 2 + [_I] * 3 + [_P]),
     "iblb_band_super": ([_P, _LL, _P, _LL] + [_P] * 15 + [_I] * 9
                         + [_D] * 2 + [_I] * 2 + [_P]),
+    "iblb_collide_rows": ([_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P]
+                          + [_I] * 2 + [_D] * 2 + [_I] * 2 + [_P]),
+    "iblb_ghost_temporal": ([_P, _LL] * 4 + [_P] * 5 + [_I] * 9 + [_D] * 2
+                            + [_I] * 3 + [_P]),
 }
 
 

@@ -39,7 +39,7 @@ NPT = 128   # points per cilium block
 
 def band_super_block(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
                      walls=ref.REFERENCE_WALLS, forcing="trt_split",
-                     storage="raw", win_lo0=None, flux_x=None):
+                     storage="raw", win_lo0=None, flux_x=None, wwin=None):
     """Plain torch version of _band_super_kernel on one block of
     f_ext.shape[-1] columns, transcribed from it: the IB coupling as dense
     per-window contractions (a [3 band, W] x [W, 128] interpolation and a
@@ -51,13 +51,15 @@ def band_super_block(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
     the tile (fold=False) layout: block j's window starts at win_lo0 +
     j c_space inside the block, and the strip is the block.  flux_x is the
     flux column in block coordinates, or None (no flux: a tile that does
-    not own it).  Returns (f_band, bhalos, force, flux or None), f_band in
-    the compute dtype."""
+    not own it).  wwin is the window width, c_space + 2 halo unless given
+    (B8's phase-general layout widens it by c_space).  Returns (f_band,
+    bhalos, force, flux or None), f_band in the compute dtype."""
     K = us.shape[0]
     band, cw = cfg.force_band, cfg.c_space
     rows, xdim = f_ext.shape[1], f_ext.shape[2]
     fold = win_lo0 is None
-    wwin = cw + 2 * halo
+    if wwin is None:
+        wwin = cw + 2 * halo
     cdt = torch.promote_types(f_ext.dtype, torch.float32)
     dev = f_ext.device
     f = f_ext.to(cdt)
@@ -122,63 +124,92 @@ def band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
     return _into(out, f_band.to(f_ext.dtype)), bhalos, fo, flux
 
 
+def check_points(pts, K, c, dtype, device):
+    """pts = (us, eps, axl, fx, ay, fy) are c point blocks of K sub-steps:
+    us [K, 2, c, 128], the others [K, c, 128], the anchors int32."""
+    _kernels.check_tensor("us", pts[0], (K, 2, c, NPT), dtype, device)
+    for name, t, tdt in zip(("eps", "axl", "fx", "ay", "fy"), pts[1:],
+                            (dtype, torch.int32, dtype, torch.int32, dtype)):
+        _kernels.check_tensor(name, t, (K, c, NPT), tdt, device)
+
+
+def launch_band_super(f_ext, force, pts, cfg, wwin, win_lo0, flux_x, walls,
+                      forcing, storage, what, out=None):
+    """Check the inputs and launch csrc/band_super.cu once on CUDA tensors,
+    on a block of W = f_ext.shape[-1] columns: f_ext [9, band + pad, W],
+    force [2, band, W], pts = (us, eps, axl, fx, ay, fy) the block's c
+    point blocks; window j starts at block column win_lo0 + j c_space and
+    is wwin wide; flux_x is the flux column in block columns, or None (no
+    flux).  f_ext and ``out`` ([9, band, W]) may be row ranges of larger
+    states and must not overlap.  Returns (f_band, bhalos, force_new, flux
+    or None).  B5, B6 and B8 call it with their layouts."""
+    dt, dev = f_ext.dtype, f_ext.device
+    _kernels.check_scheme(dt, walls, forcing, storage, what)
+    us = pts[0]
+    if us.dim() != 4 or us.shape[0] < 1:
+        raise ValueError(f"us must be [K, 2, c, 128], got {tuple(us.shape)}")
+    K, c = us.shape[0], us.shape[2]
+    band = cfg.force_band
+    _, rows, width = f_ext.shape
+    if rows - band < K:
+        raise ValueError(f"ghost pad {rows - band} must cover K={K} "
+                         "sub-steps")
+    if flux_x is not None and not 0 <= flux_x < width:
+        raise ValueError(f"flux_x {flux_x} outside [0, {width})")
+    _kernels.check_planes("f_ext", f_ext, (9, rows, width), dt, dev)
+    _kernels.check_tensor("force", force, (2, band, width), dt, dev)
+    check_points(pts, K, c, dt, dev)
+    if out is None:
+        out = torch.empty((9, band, width), dtype=dt, device=dev)
+    _kernels.check_planes("out", out, (9, band, width), dt, dev)
+    _kernels.check_disjoint("out", out, "f_ext", f_ext)
+    bufs = [torch.empty((9, rows, width), dtype=dt, device=dev)
+            if K > 1 + i else None for i in range(2)]
+    bhalos = torch.empty((K, 9, width), dtype=dt, device=dev)
+    force_new = torch.empty((2, band, width), dtype=dt, device=dev)
+    q = torch.empty((3, band, width), dtype=dt, device=dev)
+    amp = torch.empty((2, c, NPT), dtype=dt, device=dev)
+    colbuf = flux = None
+    if flux_x is not None:
+        colbuf = torch.empty((K, band), dtype=dt, device=dev)
+        flux = torch.empty((K,), dtype=dt, device=dev)
+    _kernels.launch(
+        "iblb_band_super", dt, dev, f_ext.data_ptr(), f_ext.stride(0),
+        out.data_ptr(), out.stride(0), force.data_ptr(),
+        force_new.data_ptr(), *(t.data_ptr() for t in pts),
+        bhalos.data_ptr(), _kernels.ptr(bufs[0]), _kernels.ptr(bufs[1]),
+        q.data_ptr(), amp.data_ptr(), _kernels.ptr(colbuf),
+        _kernels.ptr(flux), rows, band, width, K, c, cfg.c_space, wwin,
+        win_lo0, -1 if flux_x is None else flux_x, float(cfg.tau),
+        float(cfg.tau2), int(forcing == "trt_split"),
+        int(storage == "deviatoric"))
+    return out, bhalos, force_new, flux
+
+
 def band_super(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
                walls=ref.REFERENCE_WALLS, forcing="trt_split", storage="raw",
                out=None):
     """(f_band, bhalos, force_new, flux).  CUDA tensors launch the hand
-    kernel: f_ext and ``out`` ([9, band, X]) may be row ranges of larger
-    states (contiguous rows) and must not overlap.  CPU tensors take the
-    plain version."""
+    kernel (launch_band_super, the whole-domain layout): f_ext and ``out``
+    ([9, band, X]) may be row ranges of larger states (contiguous rows)
+    and must not overlap.  CPU tensors take the plain version."""
     if f_ext.device.type == "cpu":
         return band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy,
                                     cfg, halo, walls, forcing, storage, out)
     if f_ext.device.type != "cuda":
         raise ValueError(f"band_super: unsupported device {f_ext.device}")
-    dt, dev = f_ext.dtype, f_ext.device
-    _kernels.check_scheme(dt, walls, forcing, storage, "band_super")
-    band, xdim, c = cfg.force_band, cfg.xdim, cfg.c_num
-    if us.dim() != 4 or us.shape[0] < 1:
-        raise ValueError(f"us must be [K, 2, c, 128], got {tuple(us.shape)}")
-    K = us.shape[0]
-    rows = f_ext.shape[1]
-    if rows - band < K:
-        raise ValueError(f"ghost pad {rows - band} must cover K={K} "
-                         "sub-steps")
-    if cfg.c_space + 2 * halo > xdim or halo < 0:
+    if cfg.c_space + 2 * halo > cfg.xdim or halo < 0:
         raise ValueError("cilium window exceeds the domain width")
-    if not 0 <= cfg.flux_x < xdim:
-        raise ValueError(f"flux_x {cfg.flux_x} outside [0, {xdim})")
-    _kernels.check_planes("f_ext", f_ext, (9, rows, xdim), dt, dev)
-    _kernels.check_tensor("force", force, (2, band, xdim), dt, dev)
-    _kernels.check_tensor("us", us, (K, 2, c, NPT), dt, dev)
-    for name, t, tdt in (("eps", eps, dt), ("axl", axl, torch.int32),
-                         ("fx", fx, dt), ("ay", ay, torch.int32),
-                         ("fy", fy, dt)):
-        _kernels.check_tensor(name, t, (K, c, NPT), tdt, dev)
-    if out is None:
-        out = torch.empty((9, band, xdim), dtype=dt, device=dev)
-    _kernels.check_planes("out", out, (9, band, xdim), dt, dev)
-    _kernels.check_disjoint("out", out, "f_ext", f_ext)
-    bufs = [torch.empty((9, rows, xdim), dtype=dt, device=dev)
-            if K > 1 + i else None for i in range(2)]
-    bhalos = torch.empty((K, 9, xdim), dtype=dt, device=dev)
-    force_new = torch.empty((2, band, xdim), dtype=dt, device=dev)
-    q = torch.empty((3, band, xdim), dtype=dt, device=dev)
-    amp = torch.empty((2, c, NPT), dtype=dt, device=dev)
-    colbuf = torch.empty((K, band), dtype=dt, device=dev)
-    flux = torch.empty((K,), dtype=dt, device=dev)
-    _kernels.launch(
-        "iblb_band_super", dt, dev, f_ext.data_ptr(), f_ext.stride(0),
-        out.data_ptr(), out.stride(0), force.data_ptr(),
-        force_new.data_ptr(), us.data_ptr(), eps.data_ptr(), axl.data_ptr(),
-        fx.data_ptr(), ay.data_ptr(), fy.data_ptr(), bhalos.data_ptr(),
-        _kernels.ptr(bufs[0]), _kernels.ptr(bufs[1]), q.data_ptr(),
-        amp.data_ptr(), colbuf.data_ptr(), flux.data_ptr(), rows, band,
-        xdim, K, c, cfg.c_space, halo, -halo, cfg.flux_x, float(cfg.tau),
-        float(cfg.tau2), int(forcing == "trt_split"),
-        int(storage == "deviatoric"))
+    if f_ext.shape[-1] != cfg.xdim or us.dim() != 4 \
+            or us.shape[2] != cfg.c_num:
+        raise ValueError(f"band_super takes the whole domain's columns and "
+                         f"cilia: f_ext {tuple(f_ext.shape)}, us "
+                         f"{tuple(us.shape)}")
+    res = launch_band_super(f_ext, force, (us, eps, axl, fx, ay, fy), cfg,
+                            cfg.c_space + 2 * halo, -halo, cfg.flux_x, walls,
+                            forcing, storage, "band_super", out)
     band_super.launches += 1
-    return out, bhalos, force_new, flux
+    return res
 
 
 # Wrapper calls that launched the kernel since the last reset (the CPU

@@ -39,7 +39,9 @@ import torch
 
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
-from cuda_iblb_11_tpu_torch.ops.band_super import NPT, band_super_block
+from cuda_iblb_11_tpu_torch.ops.band_super import (
+    band_super_block, check_points, launch_band_super,
+)
 from cuda_iblb_11_tpu_torch.ops.fused_step import _into
 from cuda_iblb_11_tpu_torch.ops.temporal import band_super_block_windows
 
@@ -154,63 +156,44 @@ def band_super_tiled(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
                          f"{f_ext.device}")
     dt, dev = f_ext.dtype, f_ext.device
     _kernels.check_scheme(dt, walls, forcing, storage, "band_super_tiled")
-    band, xdim, c = cfg.force_band, cfg.xdim, cfg.c_num
+    band, xdim = cfg.force_band, cfg.xdim
     if us.dim() != 4 or us.shape[0] < 1:
         raise ValueError(f"us must be [K, 2, c, 128], got {tuple(us.shape)}")
     K = us.shape[0]
-    rows = f_ext.shape[1]
-    if rows - band < K:
-        raise ValueError(f"ghost pad {rows - band} must cover K={K} "
-                         "sub-steps")
     if halo < 0 or not 0 <= cfg.flux_x < xdim:
         raise ValueError(f"halo {halo} or flux_x {cfg.flux_x} out of range")
     lay = tile_layout(cfg, halo, tile_x, gx, K)
+    rows = f_ext.shape[1]
     _kernels.check_planes("f_ext", f_ext, (9, rows, xdim), dt, dev)
     _kernels.check_tensor("force", force, (2, band, xdim), dt, dev)
     # the whole domain's points: each tile takes its subset itself
-    _kernels.check_tensor("us", us, (K, 2, c, NPT), dt, dev)
-    for name, t, tdt in (("eps", eps, dt), ("axl", axl, torch.int32),
-                         ("fx", fx, dt), ("ay", ay, torch.int32),
-                         ("fy", fy, dt)):
-        _kernels.check_tensor(name, t, (K, c, NPT), tdt, dev)
+    check_points((us, eps, axl, fx, ay, fy), K, cfg.c_num, dt, dev)
     if out is None:
         out = torch.empty((9, band, xdim), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, band, xdim), dt, dev)
     _kernels.check_disjoint("out", out, "f_ext", f_ext)
     _, cols = _tile_index(lay, dev)
     pts = _tile_points(lay, (us, eps, axl, fx, ay, fy), dev)
-    c_sub, txe = pts[0].shape[3], lay.txe
     bhalos = torch.empty((K, 9, xdim), dtype=dt, device=dev)
     force_new = torch.empty((2, band, xdim), dtype=dt, device=dev)
-    flux = torch.empty((K,), dtype=dt, device=dev)
-    # one tile's blocks, reused by every tile in stream order
-    f_t = torch.empty((9, rows, txe), dtype=dt, device=dev)
-    force_t = torch.empty((2, band, txe), dtype=dt, device=dev)
-    fb_t = torch.empty((9, band, txe), dtype=dt, device=dev)
-    bh_t = torch.empty((K, 9, txe), dtype=dt, device=dev)
-    fo_t = torch.empty((2, band, txe), dtype=dt, device=dev)
-    bufs = [torch.empty((9, rows, txe), dtype=dt, device=dev)
-            if K > 1 + i else None for i in range(2)]
-    q = torch.empty((3, band, txe), dtype=dt, device=dev)
-    amp = torch.empty((2, c_sub, NPT), dtype=dt, device=dev)
-    colbuf = torch.empty((K, band), dtype=dt, device=dev)
+    flux = None
+    # one tile's gathered inputs and its f_band, reused by every tile in
+    # stream order
+    f_t = torch.empty((9, rows, lay.txe), dtype=dt, device=dev)
+    force_t = torch.empty((2, band, lay.txe), dtype=dt, device=dev)
+    fb_t = torch.empty((9, band, lay.txe), dtype=dt, device=dev)
     inner = slice(gx, gx + tile_x)
     for t in range(lay.n_tiles):
         own = t == lay.t_flux
         torch.index_select(f_ext, 2, cols[t], out=f_t)
         torch.index_select(force, 2, cols[t], out=force_t)
-        _kernels.launch(
-            "iblb_band_super", dt, dev, f_t.data_ptr(), f_t.stride(0),
-            fb_t.data_ptr(), fb_t.stride(0), force_t.data_ptr(),
-            fo_t.data_ptr(), *(p[t].data_ptr() for p in pts),
-            bh_t.data_ptr(), _kernels.ptr(bufs[0]), _kernels.ptr(bufs[1]),
-            q.data_ptr(), amp.data_ptr(),
-            colbuf.data_ptr() if own else None,
-            flux.data_ptr() if own else None, rows, band, txe, K, c_sub,
-            cfg.c_space, halo, lay.win_lo0,
-            lay.flux_local if own else -1, float(cfg.tau), float(cfg.tau2),
-            int(forcing == "trt_split"), int(storage == "deviatoric"))
+        _, bh_t, fo_t, flux_t = launch_band_super(
+            f_t, force_t, [p[t] for p in pts], cfg, cfg.c_space + 2 * halo,
+            lay.win_lo0, lay.flux_local if own else None, walls, forcing,
+            storage, "band_super_tiled", fb_t)
         band_super_tiled.launches += 1
+        if own:
+            flux = flux_t
         lo = t * tile_x
         out[:, :, lo:lo + tile_x].copy_(fb_t[:, :, inner])
         bhalos[:, :, lo:lo + tile_x].copy_(bh_t[:, :, inner])

@@ -3,7 +3,8 @@ emission: B2, the port of make_fused_substep(pipeline=True,
 emit_moments=True) (cuda_iblb_11_tpu/ops/pallas_step.py:444, kernel
 _pipelined_kernel :181, collide _collide_tile :642), and B3, the port of
 make_sharded_fused_substep (:2217), the same kernel on a row block with
-flags, neighbour halo rows and an exposed f1 row (the temporal band leg).
+flags, neighbour halo rows and an exposed f1 row (the temporal band leg
+and the sharded path, on a shard's own columns).
 
 ``fused_substep`` and ``sharded_fused_substep`` are the wrappers: for CUDA
 tensors they launch the hand kernel csrc/fused_step.cu (or raise); for CPU
@@ -177,7 +178,10 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
     """B3: (f_new, f1row, q, fluxcol) as sharded_fused_substep_reference
     returns them.  CUDA tensors launch the hand kernel: f_loc and ``out``
     may be row ranges of larger states (contiguous rows), and must not
-    overlap; the exposed row goes into ``f1out`` ([9, X]) when given.  CPU
+    overlap; the exposed row goes into ``f1out`` ([9, X]) when given.  The
+    block's width X may be an x-shard's xl < XDIM (the force then holds the
+    shard's columns): the x-roll wraps the block, and the caller repairs
+    its two edge columns (parallel/sharded.py, _patch_x_seams).  CPU
     tensors take the plain version."""
     if f_loc.device.type == "cpu":
         return sharded_fused_substep_reference(
@@ -191,10 +195,6 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
     y0, is_bottom, is_top = (int(v) for v in flags)
     _, rows, xdim = f_loc.shape
     band = cfg.force_band
-    if xdim != cfg.xdim:
-        raise NotImplementedError(
-            f"local width {xdim} < XDIM {cfg.xdim}: the x-sharded block "
-            "belongs to the multi-device slice (ROADMAP Queue 1 item 12)")
     _kernels.check_planes("f_loc", f_loc, (9, rows, xdim), dt, dev)
     if force_band is not None:
         _kernels.check_tensor("force", force_band, (2, band, xdim), dt, dev)
@@ -203,9 +203,9 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
             _kernels.check_tensor(name, h, (9, xdim), dt, dev)
     if expose_row is not None and not 0 <= expose_row < rows:
         raise ValueError("expose_f1_row outside the local block")
-    if emit_moments and (y0 != 0 or rows < band):
+    if emit_moments and (y0 != 0 or rows < band or xdim != cfg.xdim):
         raise ValueError("emit_moments needs a y0 = 0 block holding the "
-                         "whole band")
+                         "whole band at the domain's width")
     if out is None:
         out = torch.empty((9, rows, xdim), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, rows, xdim), dt, dev)

@@ -1,0 +1,150 @@
+"""B7: K force-free steps of one shard's rows with ghost rows — the port of
+make_ghost_temporal_substep (cuda_iblb_11_tpu/ops/pallas_step.py:2079,
+kernel _ghost_temporal_kernel :1855).
+
+    ghost_temporal(flags, f_loc, bot, top, bhalos, cfg, ...)
+        -> (f_block [9, yl + 2 pad, W], flux [K])
+
+f_loc [9, yl, W] is the shard's rows (and, on x-sharded meshes, 128 ghost
+columns a side from its x-neighbours); bot and top [9, pad, W] the ghost
+rows below and above it (pad = 16, ops/temporal.GHOST_PAD, sent by the
+y-neighbours once per K steps); bhalos [K, 9, W] the f1 of global row
+band-1 at each sub-step (the band leg's seam output).  flags = (inject,
+is_top, seam_row, flux_lane, flux_owned), as csrc/ghost_temporal.cu says:
+the seam row pad + clip(band - y0, 0, yl) pulls its up-going populations
+from bhalos where the seam lies in the shard; the top wall applies at
+block row pad + yl - 1 on the top shard; flux[s] sums mom_x / rho at
+flux_lane over block rows [seam_row, pad + yl) after sub-step s, where the
+shard owns the flux column (zeros elsewhere; the caller divides by 192).
+The caller keeps rows [pad, pad + yl) (and the shard's own columns): the
+edge rows and columns of the block carry garbage that moves one cell per
+sub-step, and the rows below the seam are the band leg's.
+
+``ghost_temporal`` launches csrc/ghost_temporal.cu for CUDA tensors (or
+raises) and calls ``ghost_temporal_reference`` for CPU tensors.  B4
+(ops/temporal_bulk.py) launches the same driver through
+``launch_k_steps``, with no ghost rows.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuda_iblb_11_tpu_torch.core.lattice import CX
+from cuda_iblb_11_tpu_torch.ops import _kernels
+from cuda_iblb_11_tpu_torch.ops import reference as ref
+from cuda_iblb_11_tpu_torch.ops.fused_step import (
+    TOP_PAIRS, _emit, _into, stream_block,
+)
+from cuda_iblb_11_tpu_torch.ops.temporal import check_ghost
+
+SEAM_DIRS = (2, 5, 6)   # the up-going populations the seam row pulls
+
+
+def ghost_temporal_reference(flags, f_loc, bot, top, bhalos, cfg,
+                             walls=ref.REFERENCE_WALLS, forcing="trt_split",
+                             storage="raw", out=None):
+    """Plain torch version, in >= f32 between sub-steps: K force-free
+    collides (ops/reference.collide_rows) and pull-streams of the whole
+    block, the rows beyond its edges read as zeros, the x-roll within the
+    block; then the seam row's injected pulls, the top wall and the flux of
+    the owned rows.  The block goes into ``out`` when given."""
+    inject, is_top, seam_row, lane, owned = (int(v) for v in flags)
+    pad, yl, width = bot.shape[1], f_loc.shape[1], f_loc.shape[2]
+    cdt = torch.promote_types(f_loc.dtype, torch.float32)
+    f = torch.cat([bot, f_loc, top], dim=1).to(cdt)
+    force = f.new_zeros((2,) + tuple(f.shape[1:]))
+    zero = f.new_zeros((9, width))
+    wall = pad + yl - 1
+    flux = []
+    for s in range(bhalos.shape[0]):
+        f1 = ref.collide_rows(f, force, cfg.tau, cfg.tau2, forcing, storage)
+        f = stream_block(f1, zero, zero)
+        if inject:
+            h = bhalos[s].to(cdt)
+            for d in SEAM_DIRS:
+                f[d, seam_row] = torch.roll(h[d], int(CX[d]))
+        if is_top:
+            for dst, src in TOP_PAIRS[walls.top]:
+                f[dst, wall] = f1[src, wall]
+        if owned:
+            _, fluxcol = _emit(f, 0, lane, storage)
+            fluxcol = fluxcol[:, seam_row:pad + yl]
+            flux.append((fluxcol[1] / fluxcol[0]).sum())
+        else:
+            flux.append(f.new_zeros(()))
+    return _into(out, f.to(f_loc.dtype)), torch.stack(flux)
+
+
+def launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
+                   storage, out, what):
+    """Check the inputs and launch csrc/ghost_temporal.cu once on CUDA
+    tensors: B7's block, or B4's with bot and top None (no ghost rows).
+    f_loc, bot, top and ``out`` may be row ranges of larger tensors
+    (contiguous rows); ``out`` overlaps none of the inputs.  Returns
+    (out [9, yl + 2 pad, W], flux [K])."""
+    dt, dev = f_loc.dtype, f_loc.device
+    _kernels.check_scheme(dt, walls, forcing, storage, what)
+    inject, is_top, seam_row, lane, owned = (int(v) for v in flags)
+    _, yl, width = f_loc.shape
+    pad = 0 if bot is None else bot.shape[1]
+    if bhalos.dim() != 3 or bhalos.shape[0] < 1:
+        raise ValueError(f"bhalos must be [K, 9, W], got "
+                         f"{tuple(bhalos.shape)}")
+    K = bhalos.shape[0]
+    rows = yl + 2 * pad
+    if not pad <= seam_row <= pad + yl:
+        raise ValueError(f"seam_row {seam_row} outside [{pad}, {pad + yl}]")
+    if owned and not 0 <= lane < width:
+        raise ValueError(f"flux_lane {lane} outside [0, {width})")
+    _kernels.check_planes("f_loc", f_loc, (9, yl, width), dt, dev)
+    ghosts = (("bot", bot), ("top", top)) if pad else ()
+    for name, t in ghosts:
+        _kernels.check_planes(name, t, (9, pad, width), dt, dev)
+    _kernels.check_tensor("bhalos", bhalos, (K, 9, width), dt, dev)
+    if out is None:
+        out = torch.empty((9, rows, width), dtype=dt, device=dev)
+    _kernels.check_planes("out", out, (9, rows, width), dt, dev)
+    for name, t in (("f_loc", f_loc),) + ghosts:
+        _kernels.check_disjoint("out", out, name, t)
+    tmp = [torch.empty((9, rows, width), dtype=dt, device=dev)
+           if K > 1 + i else None for i in range(2)]
+    colbuf = (torch.empty((K, 2, rows), dtype=dt, device=dev) if owned
+              else None)
+    flux = (torch.empty if owned else torch.zeros)((K,), dtype=dt,
+                                                   device=dev)
+    _kernels.launch(
+        "iblb_ghost_temporal", dt, dev, _kernels.ptr(bot),
+        bot.stride(0) if pad else 0, f_loc.data_ptr(), f_loc.stride(0),
+        _kernels.ptr(top), top.stride(0) if pad else 0, out.data_ptr(),
+        out.stride(0), _kernels.ptr(tmp[0]), _kernels.ptr(tmp[1]),
+        bhalos.data_ptr(), _kernels.ptr(colbuf),
+        flux.data_ptr() if owned else None, yl, pad, width, K, inject,
+        is_top, seam_row, lane if owned else -1, owned, float(cfg.tau),
+        float(cfg.tau2), int(forcing == "trt_split"),
+        int(storage == "deviatoric"), int(walls.top == "noslip"))
+    return out, flux
+
+
+def ghost_temporal(flags, f_loc, bot, top, bhalos, cfg,
+                   walls=ref.REFERENCE_WALLS, forcing="trt_split",
+                   storage="raw", out=None):
+    """(f_block, flux [K]).  CUDA tensors launch the hand kernel
+    (launch_k_steps); CPU tensors take the plain version."""
+    if f_loc.device.type == "cpu":
+        return ghost_temporal_reference(flags, f_loc, bot, top, bhalos, cfg,
+                                        walls, forcing, storage, out)
+    if f_loc.device.type != "cuda":
+        raise ValueError(f"ghost_temporal: unsupported device "
+                         f"{f_loc.device}")
+    if bhalos.dim() == 3:
+        check_ghost(bhalos.shape[0], f_loc.shape[1], bot.shape[1])
+    res = launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
+                         storage, out, "ghost_temporal")
+    ghost_temporal.launches += 1
+    return res
+
+
+# Wrapper calls that launched the kernel since the last reset (the CPU
+# path does not count).
+ghost_temporal.launches = 0

@@ -28,14 +28,21 @@ torch.backends.cudnn.allow_tf32 = False
 DEFAULT_BAND = 128
 
 
-def _delta_factors_anchored(anchor, frac, xdim, band, dtype):
-    """(DY [Ns, band], DX [Ns, X]) from the (int32 anchor, sub-cell frac)
-    split of models/cilia.anchored_nodes.  Grid-to-anchor distances are
-    exact int32 arithmetic with an integer periodic fold to [-X/2, X/2);
-    only |frac| <= 0.5 touches the float dtype."""
+def _delta_factors_anchored(anchor, frac, xdim, band, dtype, x_offset=0,
+                            x_count=None, y_offset=0, y_count=None):
+    """(DY [Ns, y_count], DX [Ns, x_count]) from the (int32 anchor, sub-cell
+    frac) split of models/cilia.anchored_nodes, over grid rows [y_offset,
+    y_offset + y_count) (default the band) and columns [x_offset, x_offset
+    + x_count) (default the domain): the sharded path evaluates only a
+    shard's own block.  Grid-to-anchor distances are exact int32
+    arithmetic with an integer periodic fold to [-X/2, X/2) over the global
+    xdim; only |frac| <= 0.5 touches the float dtype."""
     device = anchor.device
     half = xdim // 2
-    xg = torch.arange(xdim, dtype=torch.int32, device=device)[None, :]
+    x_count = xdim if x_count is None else x_count
+    y_count = band if y_count is None else y_count
+    xg = x_offset + torch.arange(x_count, dtype=torch.int32,
+                                 device=device)[None, :]
     v = xg - anchor[:, 0][:, None].to(torch.int32)
     # |v| < 2X (the anchor is within one wrap of the domain): two
     # conditional adjustments fold it exactly
@@ -43,7 +50,8 @@ def _delta_factors_anchored(anchor, frac, xdim, band, dtype):
         v = torch.where(v >= half, v - xdim, v)
         v = torch.where(v < -half, v + xdim, v)
     dx = v.to(dtype) - frac[:, 0][:, None].to(dtype)
-    yg = torch.arange(band, dtype=torch.int32, device=device)[None, :]
+    yg = y_offset + torch.arange(y_count, dtype=torch.int32,
+                                 device=device)[None, :]
     dy = ((yg - anchor[:, 1][:, None].to(torch.int32)).to(dtype)
           - frac[:, 1][:, None].to(dtype))
     return delta_1d(dy.abs()), delta_1d(dx.abs())
@@ -96,6 +104,36 @@ def spread(f_s, eps, factors):
     lhs = f_s * eps[:, None].to(f_s.dtype)                   # [Ns, 2]
     a = lhs.T[:, None, :] * dy.to(f_s.dtype).T[None]         # [2, band, Ns]
     return torch.matmul(a, dx.to(f_s.dtype))                 # [2, band, X]
+
+
+def interpolate_partial(f_loc, xdim, band, y0, x0, n_rows, storage="raw",
+                        anchored=None):
+    """A shard's share [3, Ns] of the (rho, mom_x, mom_y) delta integrals:
+    f_loc [9, yl, xl] is its block at global offset (y0, x0), summed over
+    its first n_rows rows (min(yl, band) suffices: the y-factors vanish
+    above the band).  The caller sums the shares of every shard and
+    finishes with finish_interpolate (cuda_iblb_11_tpu/ops/ib_band.py:
+    182-206)."""
+    if anchored is None:
+        raise ValueError("sharded interpolation requires anchored positions")
+    rho, mom = band_moments(f_loc, n_rows, storage)
+    dy, dx = _delta_factors_anchored(
+        anchored[0], anchored[1], xdim, band, rho.dtype, x_offset=x0,
+        x_count=f_loc.shape[2], y_offset=y0, y_count=n_rows)
+    q = torch.cat([rho[None], mom])                          # [3, n, xl]
+    t = torch.matmul(q, dx.T)                                # [3, n, Ns]
+    return torch.einsum("qyk,ky->qk", t, dy)                 # [3, Ns]
+
+
+def spread_local(f_s, eps, xdim, band, x0, xl, anchored=None):
+    """A shard's columns [2, band, xl] of the band force, at global column
+    offset x0: every point against the shard's own x-factors, so no sum
+    across shards (cuda_iblb_11_tpu/ops/ib_band.py:215-225)."""
+    if anchored is None:
+        raise ValueError("sharded spreading requires anchored positions")
+    factors = _delta_factors_anchored(anchored[0], anchored[1], xdim, band,
+                                      f_s.dtype, x_offset=x0, x_count=xl)
+    return spread(f_s, eps, factors)
 
 
 def pad_band(force_band, ydim):

@@ -2,7 +2,10 @@
 cuda_iblb_11_tpu/models/mucociliary.py:_setup_temporal (:231-297) and of
 the factories it calls in ops/pallas_step.py (pick_band_leg_tile :614,
 make_temporal_bulk_substep :966, _band_super_geometry :1328,
-make_band_super_substep :1509, make_band_super_substep_tiled :1582).
+make_band_super_substep :1509, make_band_super_substep_tiled :1582); and,
+for a mesh, of parallel/sharded.py:ShardedTemporalSim.__init__ (:793-910)
+with make_ghost_temporal_substep (:2079) and
+make_band_super_substep_xsharded (:1727) — plan_sharded below.
 
 A K-step super-step splits the state into the force band (rows [0, band),
 stepped with the IB coupling) and the force-free bulk (rows [band, Y),
@@ -31,7 +34,9 @@ mode; so on the CPU both packages pick the same K, leg and pads.  Not
 kept: the bulk's VMEM ring budget (:1007-1021), _pick_tile's VMEM budget
 and the 128-lane alignments of c_space, the halo and the tile (:1340,
 :1358, :1647): the port's bulk keeps no rings and its kernels take any
-width.
+width.  For the same reason pick_band_leg_tile takes no width (the JAX
+version's xl sizes only its VMEM budget), and the ghost kernel keeps only
+K in [1, 16] and yl >= its 16-row pad, not the TPU's row-tile divisibility.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ import torch
 from cuda_iblb_11_tpu_torch.models.cilia import beat_x_bound
 
 AUTO_LADDER = (16, 8, 4, 2)   # largest eligible K wins
+GHOST_PAD = 16     # ghost rows a side of the sharded bulk block (B7)
+X_GHOST = 128      # ghost columns a side of it on x-sharded meshes
 
 
 @dataclass(frozen=True)
@@ -239,6 +246,157 @@ def plan_temporal(cfg, K: int, walls, dtype, pattern: str = "no_mucus",
     check_bulk(cfg, K, walls, dtype)
     return TemporalPlan(K=K, band_leg=leg, pad=pad, pad_s=pad_s, halo=halo,
                         tile_x=tile_x, gx=gx)
+
+
+def check_ghost(K: int, yl: int, pad: int = GHOST_PAD) -> None:
+    """The ghost kernel's predicates (pallas_step.py:2123-2125,
+    sharded.py:838-847): K in [1, pad], and a shard at least pad rows high,
+    since its neighbours' ghost rows are its own edge rows."""
+    if not 1 <= K <= pad:
+        raise ValueError(f"K={K} must be in [1, {pad}] (ghost pad budget)")
+    if yl < pad:
+        raise ValueError(
+            f"sharded temporal blocking needs yl >= {pad} rows per y-shard "
+            f"(one-hop ghost-row exchange), got yl={yl}; use fewer y-shards "
+            "or the per-step sharded path")
+
+
+@dataclass(frozen=True)
+class XShardLayout:
+    """The x-sharded band super-step (B8) on xl-column shards: each shard's
+    block is xl + 2 gx columns, its point blocks the c_sub cilia whose
+    windows lie inside it."""
+    gx: int
+    halo: int
+    width: int               # xl + 2 gx
+    c_sub: int
+    win_lo0: int             # block column of point block 0's window
+    wwin: int                # window width
+    phase_general: bool      # xl is not a c_space multiple
+    m0: int | None = None    # uniform: shard ix's block j is cilium
+    c_step: int | None = None    # (m0 + ix c_step + j) mod c_num
+    wcov: int | None = None  # phase-general: the natural window W
+
+
+def xshard_layout(cfg, pad: int, K: int, walls, dtype, xl: int, n_x: int,
+                  pattern: str = "no_mucus", budget: int | None = None,
+                  gx: int | None = None) -> XShardLayout:
+    """make_band_super_substep_xsharded's geometry (pallas_step.py:
+    1786-1828): gx = W + 8K rounded up to 128 columns (and c_space more in
+    the phase-general layout, whose windows are c_space wider); gx <= xl,
+    xl + 2 gx <= xdim, and the footprint of the xl + 2 gx block held to
+    `budget`.  In the uniform layout every shard has the same windows and
+    its cilia are a rotation of shard 0's.  Raises ValueError where it does
+    not apply.  `gx` overrides the margin (the tests give the JAX
+    interpret-mode value)."""
+    cw, halo = band_super_geometry(cfg, pad, K, walls, pattern)
+    band = cfg.force_band
+    uniform = xl % cw == 0
+    wcov = cw + 2 * halo
+    if gx is None:
+        gx = band_super_reach(cw, halo, K) + (0 if uniform else cw)
+    wwin = wcov if uniform else wcov + cw
+    if gx > xl:
+        raise ValueError(f"x-sharded band super needs gx={gx} <= xl={xl} "
+                         "(one-hop ghost-column exchange)")
+    txe = xl + 2 * gx
+    if txe > cfg.xdim:
+        raise ValueError(f"extended shard block {txe} > XDIM={cfg.xdim}: a "
+                         "cilium's periodic images would both fall inside "
+                         "one block")
+    if budget is not None and band_super_resident(
+            txe, band + pad, band, 0, dtype) > budget:
+        raise ValueError(f"x-sharded band super block ({txe} columns) "
+                         f"exceeds the budget of {budget} bytes")
+    if not uniform:
+        c_sub = (txe - wwin) // cw + 1
+        if c_sub < 1:
+            raise ValueError(f"phase-general band super: no widened window "
+                             f"(width {wwin}) fits the {txe}-column block")
+        return XShardLayout(gx=gx, halo=halo, width=txe, c_sub=c_sub,
+                            win_lo0=0, wwin=wwin, phase_general=True,
+                            wcov=wcov)
+    lifts, win_lo = band_super_block_windows(cfg.c_num, cw, halo, xl, gx,
+                                             n_x)
+    step = xl // cw
+    if (not lifts[0] or any(w != win_lo[0] for w in win_lo)
+            or any(lifts[t] != tuple(m + t * step for m in lifts[0])
+                   for t in range(n_x))):
+        raise ValueError("x-sharded band super: the shards' window layout "
+                         "is not uniform")
+    return XShardLayout(gx=gx, halo=halo, width=txe, c_sub=len(lifts[0]),
+                        win_lo0=win_lo[0][0], wwin=wwin, phase_general=False,
+                        m0=lifts[0][0], c_step=step)
+
+
+@dataclass(frozen=True)
+class ShardedPlan:
+    """The K-step legs of a (n_y, n_x) mesh (ShardedTemporalSim)."""
+    K: int
+    band_leg: str   # band_super_whole | band_super_xtiled |
+                    # band_super_xsharded(_phase) | per_substep_tiled
+    pad_s: int           # ghost rows of the band super-step
+    band_gather: bool    # the extended band spans y-shards
+    xpad: int            # ghost columns of the bulk block (0 or 128)
+    halo: int | None = None      # band super legs
+    tile_x: int | None = None    # band_super_xtiled
+    gx: int | None = None        # band_super_xtiled
+    xshard: XShardLayout | None = None   # band_super_xsharded(_phase)
+    pad_b: int | None = None     # per_substep_tiled: the band block's pad
+
+
+def plan_sharded(cfg, K: int, n_y: int, n_x: int, walls, dtype,
+                 pattern: str = "no_mucus",
+                 budget: int | None = None) -> ShardedPlan:
+    """ShardedTemporalSim's legs for K on a (n_y, n_x) mesh, in its order
+    (sharded.py:805-910): the ghost kernel's and the pads' predicates, then
+    the band leg: on n_x = 1 the whole band super-step, else the x-tiled
+    one, held to `budget` as plan_temporal holds them; on n_x > 1 the
+    x-sharded one (xshard_layout); else the per-sub-step leg on the
+    shards' own columns.  Raises ValueError where K does not apply."""
+    band = cfg.force_band
+    yl, xl = cfg.ydim // n_y, cfg.xdim // n_x
+    if n_y * n_x < 2:
+        raise ValueError("single-shard meshes: use MucociliarySim(temporal=K)")
+    if K < 2:
+        raise ValueError("temporal must be >= 2")
+    if walls.top not in ("slip", "noslip"):
+        raise NotImplementedError("ghost temporal kernel supports "
+                                  "top=slip|noslip")
+    pad_s = -(-K // 8) * 8
+    if cfg.ydim < band + pad_s:
+        raise ValueError(f"temporal blocking needs ydim >= force_band + "
+                         f"{pad_s} (got ydim={cfg.ydim}, band={band})")
+    xpad = X_GHOST if n_x > 1 else 0
+    if xl < xpad:
+        raise ValueError(f"x-sharded temporal blocking needs xl >= {xpad} "
+                         f"(one-hop ghost-column exchange), got xl={xl}")
+    check_ghost(K, yl)
+    base = dict(K=K, pad_s=pad_s, band_gather=yl < band + pad_s, xpad=xpad)
+    try:
+        if n_x == 1:
+            _, halo = band_super_geometry(cfg, pad_s, K, walls, pattern)
+            if budget is None or band_super_resident(
+                    cfg.xdim, band + pad_s, band, 2 * halo, dtype) <= budget:
+                return ShardedPlan(band_leg="band_super_whole", halo=halo,
+                                   **base)
+            tile_x, gx = pick_band_tile(cfg, band + pad_s, K, halo, dtype,
+                                        budget)
+            return ShardedPlan(band_leg="band_super_xtiled", halo=halo,
+                               tile_x=tile_x, gx=gx, **base)
+        lay = xshard_layout(cfg, pad_s, K, walls, dtype, xl, n_x, pattern,
+                            budget)
+        return ShardedPlan(
+            band_leg=("band_super_xsharded_phase" if lay.phase_general
+                      else "band_super_xsharded"),
+            halo=lay.halo, xshard=lay, **base)
+    except ValueError:
+        pass
+    _, pad_b = pick_band_leg_tile(cfg, K, dtype)
+    if cfg.ydim < band + pad_b:
+        raise ValueError(f"temporal blocking needs ydim >= force_band + "
+                         f"{pad_b} (got ydim={cfg.ydim}, band={band})")
+    return ShardedPlan(band_leg="per_substep_tiled", pad_b=pad_b, **base)
 
 
 def plan_auto(cfg, walls, dtype, pattern: str = "no_mucus",

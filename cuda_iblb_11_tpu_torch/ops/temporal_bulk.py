@@ -13,8 +13,10 @@ streams.  flux[s] is the sum over the bulk rows of mom_x / rho at x =
 cfg.flux_x after sub-step s (no force correction: the force is zero here);
 the caller divides by 192.
 
-``temporal_bulk`` launches csrc/temporal_bulk.cu for CUDA tensors (or
-raises) and calls ``temporal_bulk_reference`` for CPU tensors.
+``temporal_bulk`` launches csrc/ghost_temporal.cu, the K-step driver it
+shares with B7, on the bulk as a block with no ghost rows, for CUDA
+tensors (or raises), and calls ``temporal_bulk_reference`` for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     _into, sharded_fused_substep_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.ghost_temporal import launch_k_steps
 
 
 def temporal_bulk_reference(f_bulk, bhalos, cfg, walls=ref.REFERENCE_WALLS,
@@ -57,34 +60,17 @@ def temporal_bulk(f_bulk, bhalos, cfg, walls=ref.REFERENCE_WALLS,
                                        storage, out)
     if f_bulk.device.type != "cuda":
         raise ValueError(f"temporal_bulk: unsupported device {f_bulk.device}")
-    dt, dev = f_bulk.dtype, f_bulk.device
-    _kernels.check_scheme(dt, walls, forcing, storage, "temporal_bulk")
     rows, xdim = cfg.ydim - cfg.force_band, cfg.xdim
     if rows < 1:
         raise ValueError("temporal_bulk needs rows above the force band")
-    if bhalos.dim() != 3 or bhalos.shape[0] < 1:
-        raise ValueError(f"bhalos must be [K, 9, X], got "
-                         f"{tuple(bhalos.shape)}")
-    K = bhalos.shape[0]
-    _kernels.check_planes("f_bulk", f_bulk, (9, rows, xdim), dt, dev)
-    _kernels.check_tensor("bhalos", bhalos, (K, 9, xdim), dt, dev)
+    _kernels.check_planes("f_bulk", f_bulk, (9, rows, xdim), f_bulk.dtype,
+                          f_bulk.device)
     if not 0 <= cfg.flux_x < xdim:
         raise ValueError(f"flux_x {cfg.flux_x} outside [0, {xdim})")
-    if out is None:
-        out = torch.empty((9, rows, xdim), dtype=dt, device=dev)
-    _kernels.check_planes("out", out, (9, rows, xdim), dt, dev)
-    _kernels.check_disjoint("out", out, "f_bulk", f_bulk)
-    tmp = [torch.empty((9, rows, xdim), dtype=dt, device=dev)
-           if K > 1 + i else None for i in range(2)]
-    colbuf = torch.empty((K, 2, rows), dtype=dt, device=dev)
-    flux = torch.empty((K,), dtype=dt, device=dev)
-    _kernels.launch(
-        "iblb_temporal_bulk", dt, dev, f_bulk.data_ptr(), f_bulk.stride(0),
-        out.data_ptr(), out.stride(0), _kernels.ptr(tmp[0]),
-        _kernels.ptr(tmp[1]), bhalos.data_ptr(), colbuf.data_ptr(),
-        flux.data_ptr(), rows, xdim, K, cfg.flux_x, float(cfg.tau),
-        float(cfg.tau2), int(forcing == "trt_split"),
-        int(storage == "deviatoric"), int(walls.top == "noslip"))
+    # the seam injected at row 0, the top wall, the flux column owned
+    out, flux = launch_k_steps((1, 1, 0, cfg.flux_x, 1), f_bulk, None, None,
+                               bhalos, cfg, walls, forcing, storage, out,
+                               "temporal_bulk")
     temporal_bulk.launches += 1
     return out, flux
 

@@ -1,13 +1,15 @@
 """Where the time of one step goes: host wall time against device time.
 
     python -m cuda_iblb_11_tpu_torch.profile_step [--grids 288x192,2048x2048]
-        [--steps 64] [--temporal K|auto] [--out PATH]
+        [--steps 64] [--temporal K|auto] [--mesh Y,X] [--out PATH]
 
 (grids: 288x192, 2048x2048, and 8192x8192 with 64 cilia, where
 --temporal auto takes the x-tiled band leg on an H100).
 
 For each grid it builds ``MucociliarySim`` on the card (f32, the hand
-kernels, temporal K as asked: 1 by default, the single-step path), warms
+kernels, temporal K as asked: 1 by default, the single-step path), or with
+--mesh the sharded sim the runner resolves for that mesh over the visible
+cards (shards share a card when there are fewer), warms
 it up with the same steps, then times ``steps`` steps from the initial
 state on the host clock without the profiler, and runs the same steps
 again under ``torch.profiler``.  It reports, per step:
@@ -39,6 +41,7 @@ from torch.autograd import DeviceType
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
+from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
 
 # name -> (c_num, c_space, ydim); SimConfig's defaults otherwise
 GRIDS = {"288x192": (6, 48, 192), "2048x2048": (16, 128, 2048),
@@ -138,6 +141,8 @@ def main(argv=None) -> int:
                          "path free of single-step remainders")
     ap.add_argument("--temporal", default="1",
                     help="K, or 'auto' (the CLI's default)")
+    ap.add_argument("--mesh", default=None, metavar="Y,X",
+                    help="profile the sharded path on a Y,X mesh")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -147,15 +152,21 @@ def main(argv=None) -> int:
     print(f"card: {record['card']}", flush=True)
     for name in args.grids.split(","):
         c, s, y = GRIDS[name]
-        sim = MucociliarySim(SimConfig(c_num=c, c_space=s, ydim=y),
-                             backend="cuda", device="cuda",
-                             dtype="float32", temporal=temporal)
+        cfg = SimConfig(c_num=c, c_space=s, ydim=y, dtype="float32")
+        if args.mesh:
+            sim = _make_mesh_sim(cfg, "cuda", "trt_split", temporal,
+                                 args.mesh, "periodic", "no_mucus",
+                                 torch.device("cuda"))
+        else:
+            sim = MucociliarySim(cfg, backend="cuda", device="cuda",
+                                 temporal=temporal)
         rc = sim.resolved_config()
-        row = dict(grid=name, temporal=rc["temporal"],
+        row = dict(grid=name, mesh=rc["mesh"], temporal=rc["temporal"],
                    band_leg=rc["band_leg"], **profile_sim(sim, args.steps))
         record["rows"].append(row)
         busy = row["device_busy_ms"]
-        print(f"{name} K={row['temporal']} {row['band_leg']}: wall "
+        print(f"{name} mesh={row['mesh']} K={row['temporal']} "
+              f"{row['band_leg']}: wall "
               f"{row['wall_ms']:.4f} ms/step, device busy "
               f"{'not measured' if busy is None else f'{busy:.4f} ms'}, "
               f"{row['device_kernels']:.1f} kernels, "

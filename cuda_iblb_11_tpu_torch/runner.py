@@ -1,12 +1,14 @@
-"""Run loop — the port of cuda_iblb_11_tpu/runner.py for the single-device
-path: interval-chunked execution, the flux series, optional field + cilia
-snapshots (overlapped with the next chunk), SimLog with the resolved
-configuration and the completion estimate, and npz checkpoint/resume.
+"""Run loop — the port of cuda_iblb_11_tpu/runner.py: interval-chunked
+execution, the flux series, optional field + cilia snapshots (overlapped
+with the next chunk), SimLog with the resolved configuration and the
+completion estimate, and npz checkpoint/resume; on one device or, with
+``mesh="Y,X"`` (or "auto"), on a mesh of shards (parallel/sharded.py),
+whose checkpoints are the global state in the same npz format.
 
 The output files come from the port's copy of the JAX package's writers
 (io/writers.py, io/native.py), so both packages write the same bytes for
-the same values.  --mesh, orbax checkpoints and
---profile-dir are not ported yet and raise.
+the same values.  Orbax checkpoints and --profile-dir are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from cuda_iblb_11_tpu_torch.utils.timing import (
 from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
 from cuda_iblb_11_tpu_torch.models.mucociliary import (
     MucociliarySim, resolve_device,
+)
+from cuda_iblb_11_tpu_torch.ops.temporal import AUTO_LADDER
+from cuda_iblb_11_tpu_torch.parallel.sharded import (
+    MeshState, ShardedPallasSim, ShardedTemporalSim, make_mesh,
+    visible_devices,
 )
 
 
@@ -195,9 +202,77 @@ def _resume_flux_rows(flux_path: str, cfg: SimConfig, it0: int,
     return keep
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(sim) -> None:
+    devices = sim.mesh.devices if hasattr(sim, "mesh") else [sim.device]
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def _resolve_auto_mesh(cfg: SimConfig, device: torch.device):
+    """``--mesh auto`` (JAX runner.py:142-189) over the visible devices of
+    the run's type: the first factorization (n_y, n_x) of their number,
+    balanced shapes first and x-major on ties, that divides the grid.
+    Returns (mesh string or None for unsharded, reason)."""
+    n = len(visible_devices(device.type))
+    if n <= 1:
+        return None, "auto: single visible device — unsharded"
+    cands = [(y, n // y) for y in range(1, n + 1) if n % y == 0]
+    cands.sort(key=lambda t: (abs(t[0] - t[1]), -t[1]))
+    for ny, nx in cands:
+        if cfg.ydim % ny == 0 and cfg.xdim % nx == 0:
+            return f"{ny},{nx}", (
+                f"auto: ({ny},{nx}) over {n} devices — balanced-first, "
+                f"x-major on ties; shard tile {cfg.ydim // ny}x"
+                f"{cfg.xdim // nx}")
+    return None, (f"auto: no factorization of {n} devices divides the "
+                  f"{cfg.ydim}x{cfg.xdim} grid — unsharded")
+
+
+def _make_mesh_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge,
+                   pattern, device):
+    """The sharded sim for ``mesh`` "Y,X" over the visible devices of the
+    run's type, as JAX runner.py:209-283 resolves it: temporal "auto"
+    takes the largest K of (16, 8, 4, 2) whose ShardedTemporalSim applies
+    on the cuda backend (none on the torch backend, as on one device), else
+    ShardedPallasSim with the reason; K > 1 takes ShardedTemporalSim(K),
+    or warns and steps one at a time; 1 takes ShardedPallasSim."""
+    parts = [int(v) for v in str(mesh).split(",")]
+    if len(parts) != 2 or min(parts) < 1:
+        raise ValueError(f"--mesh must be 'Y,X' positive ints, got {mesh!r}")
+    m = make_mesh(*parts, devices=visible_devices(device.type))
+    kw = dict(forcing=forcing, pattern=pattern, backend=backend,
+              ib_x_edge=ib_x_edge)
+    per_step = ShardedPallasSim(cfg, m, **kw)
+    if temporal == "auto":
+        per_step.temporal_requested = "auto"
+        if per_step.backend != "cuda":
+            per_step.temporal_reason = (
+                f"auto: backend {per_step.backend!r} has no temporal path")
+            return per_step
+        err = None
+        for K in AUTO_LADDER:
+            try:
+                sim = ShardedTemporalSim(cfg, m, temporal=K, **kw)
+            except ValueError as e:
+                err = e
+                continue
+            sim.temporal_requested = "auto"
+            sim.temporal_reason = f"auto: K={K} (largest eligible sharded)"
+            return sim
+        per_step.temporal_reason = (f"auto: no eligible K for the sharded "
+                                    f"temporal path ({err})")
+        return per_step
+    if int(temporal) < 1:
+        raise ValueError(f"temporal K must be >= 1, got {temporal}")
+    if int(temporal) > 1:
+        try:
+            return ShardedTemporalSim(cfg, m, temporal=int(temporal), **kw)
+        except ValueError as e:
+            print(f"warning: --temporal {temporal} with --mesh {mesh} is "
+                  f"not eligible for the K-step sharded path ({e}); falling "
+                  f"back to the per-step sharded kernel", file=sys.stderr)
+    return per_step
 
 
 def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
@@ -210,19 +285,25 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
         device="cuda") -> dict:
     """Execute cfg.iterations steps with interval outputs on `device`.
     Returns a summary dict (runtime, MLUPS incl. end-to-end, final Q)."""
-    if mesh:
-        raise _not_ported("--mesh", "ROADMAP Queue 1 item 12")
     if checkpoint_format != "npz":
         raise _not_ported(f"{checkpoint_format} checkpoints",
                           "ROADMAP Queue 1 item 12")
     if profile_dir:
         raise _not_ported("--profile-dir", "ROADMAP Queue 1 item 2")
     cfg.validate()
-    device = _select_device(cfg, device)
+    mesh_reason = None
+    if mesh == "auto":
+        mesh, mesh_reason = _resolve_auto_mesh(cfg, resolve_device(device))
+    # a mesh spreads over the visible devices; ShARC pins one device
+    device = resolve_device(device) if mesh else _select_device(cfg, device)
     overlap, overlap_reason = _resolve_overlap(overlap, snapshot_format)
-    sim = MucociliarySim(cfg, backend=backend, forcing=forcing,
-                         temporal=temporal, ib_x_edge=ib_x_edge,
-                         pattern=pattern, device=device)
+    if mesh:
+        sim = _make_mesh_sim(cfg, backend, forcing, temporal, mesh,
+                             ib_x_edge, pattern, device)
+    else:
+        sim = MucociliarySim(cfg, backend=backend, forcing=forcing,
+                             temporal=temporal, ib_x_edge=ib_x_edge,
+                             pattern=pattern, device=device)
 
     paths = OutputPaths(output_root, cfg)
     paths.makedirs()
@@ -233,6 +314,11 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
              "Dtype": resolved["dtype"]}
     if pattern != "no_mucus":
         extra["Pattern"] = pattern
+    if mesh_reason is not None:
+        extra["Mesh"] = (f"{sim.mesh.describe() if mesh else 'unsharded'} "
+                         f"({mesh_reason})")
+    elif mesh:
+        extra["Mesh"] = sim.mesh.describe()
     extra["Device"] = (f"{device} ({torch.cuda.get_device_name(device)})"
                        if device.type == "cuda" else str(device))
     extra["Resolved backend"] = resolved["backend"] + (
@@ -258,8 +344,10 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     if resume_from:
         if os.path.isdir(resume_from):
             raise _not_ported("orbax resume", "ROADMAP Queue 1 item 12")
-        state, _ = ckpt.load(resume_from, cfg, device=device)
-        if state.force.shape[1] == cfg.ydim:
+        state, _ = ckpt.load(resume_from, cfg, device=sim.device)
+        if mesh:
+            state = sim.place_state(state)    # cut onto the mesh
+        elif state.force.shape[1] == cfg.ydim:
             # jnp-mesh checkpoints keep the force full-size; this layout
             # is band-only (zero above the band by construction)
             state = state._replace(
@@ -279,7 +367,7 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
         simlog.write_extra({k: v for k, v in extra.items()
                             if k.startswith(("Resolved", "Kernel", "Device",
                                              "Storage", "IB path",
-                                             "Temporal"))})
+                                             "Temporal", "Mesh"))})
         if not quiet:
             print(f"Resumed from {resume_from} at it={it0}")
     else:
@@ -352,7 +440,7 @@ def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
         state = sim.run_chunk(state, n)
         if boundary and cfg.bigdata and snap.overlap:
             snap.submit(it, staged)
-        _sync(sim.device)
+        _sync(sim)
         meter.stop(n)
         it = state.it
 
@@ -369,6 +457,7 @@ def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
         # stops only on interval boundaries
         if checkpoint_every and it - last_ckpt >= checkpoint_every:
             ckpt.save(os.path.join(paths.raw_dir, "checkpoint.npz"),
-                      state, cfg)
+                      sim.gather_state(state)
+                      if isinstance(state, MeshState) else state, cfg)
             last_ckpt = it
     return state

@@ -98,7 +98,8 @@ def test_cli_temporal_k_matches_single_step(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2,4"], ["--checkpoint-format", "orbax"],
+    ["--mesh", "2,1", "--ib-x-edge", "reference"],   # the quirk on a mesh
+    ["--checkpoint-format", "orbax"],
     ["--profile-dir", "trace"],
     ["--temporal", "4", "--ib-x-edge", "reference"],   # the quirk K-step leg
     ["--ib-x-edge", "reference"],
@@ -115,3 +116,60 @@ def test_cli_device_cuda_without_gpu_raises(tmp_path):
         pytest.skip("a GPU is visible; this checks the no-GPU refusal")
     with pytest.raises(RuntimeError, match="cuda"):
         main(ARGS + ["--output", str(tmp_path), "--quiet"])
+
+
+def test_cli_mesh_matches_unsharded(tmp_path):
+    # --mesh 2,1 on the CPU (both shards on the one device, the plain
+    # versions): f64, so the flux equals the unsharded run's to 1e-12, one
+    # step per exchange (auto on the torch backend) and with K = 4 (the
+    # per-sub-step leg: the reference channel's window exceeds 192
+    # columns); SimLog names the mesh and the leg
+    args = ARGS + ["--quiet", "--device", "cpu", "--dtype", "float64"]
+    assert main(args + ["--output", str(tmp_path / "one")]) == 0
+    a = np.loadtxt(tmp_path / "one" / FLUX)
+    for label, extra, leg in (("m1", [], "sharded_per_step"),
+                              ("m4", ["--temporal", "4"],
+                               "per_substep_tiled")):
+        out = tmp_path / label
+        assert main(args + ["--output", str(out), "--mesh", "2,1"]
+                    + extra) == 0
+        np.testing.assert_allclose(np.loadtxt(out / FLUX), a, rtol=1e-12)
+        log = (out / SIMLOG).read_text()
+        assert "Mesh: 2,1 over 1 device(s)" in log
+        assert f"Kernel path: {leg}" in log
+
+
+def test_cli_mesh_resumes_a_single_device_checkpoint(tmp_path):
+    # a JAX single-device npz (25 steps) resumed by the port on a (2, 1)
+    # mesh, checkpointing again: the same flux as the port's straight run
+    args = ARGS + ["--quiet", "--dtype", "float64"]
+    assert main(args + ["--device", "cpu",
+                        "--output", str(tmp_path / "a")]) == 0
+    half = ARGS[:6] + ["0.00025", "1"] + ARGS[8:]
+    b = str(tmp_path / "b")
+    assert jax_main(half + ["--quiet", "--dtype", "float64", "--backend",
+                            "jnp", "--output", b, "--checkpoint-every",
+                            "25"]) == 0
+    assert main(args + ["--device", "cpu", "--output", b, "--mesh", "2,1",
+                        "--resume", f"{b}/Raw/4/1/checkpoint.npz",
+                        "--checkpoint-every", "25"]) == 0
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "b" / FLUX),
+                               np.loadtxt(tmp_path / "a" / FLUX), rtol=1e-12)
+    log = (tmp_path / "b" / SIMLOG).read_text()
+    assert "Resumed from checkpoint at iteration 25" in log
+    assert "Mesh: 2,1 over 1 device(s)" in log
+    # the mesh's checkpoint is the global state at it = 50, in the format
+    # a single-device run resumes
+    from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
+
+    st, _ = ckpt.load(f"{b}/Raw/4/1/checkpoint.npz")
+    assert st.it == 50 and st.f.shape == (9, 192, 192)
+    assert st.force.shape == (2, 128, 192)
+
+
+def test_cli_mesh_auto_is_unsharded_on_one_device(tmp_path):
+    assert main(ARGS + ["--quiet", "--device", "cpu", "--output",
+                        str(tmp_path), "--mesh", "auto"]) == 0
+    log = (tmp_path / SIMLOG).read_text()
+    assert "Mesh: unsharded (auto: single visible device" in log
+    assert "Kernel path: single_step" in log

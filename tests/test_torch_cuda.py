@@ -1,9 +1,12 @@
 """Tests that need the card: the hand kernels of csrc/ (B2 and B3
-fused_step.cu, B4 temporal_bulk.cu, B5 and B6 band_super.cu) against their
-plain versions on the same inputs on the GPU, and the model's cuda backend
-against its torch backend, single-step and temporal (all three band legs).  They carry the
-``cuda`` marker and skip on a host without a CUDA device.  This file imports no JAX, so on the GPU host
-(which has none) it runs without the JAX conftest:
+fused_step.cu, B4 and B7 ghost_temporal.cu, B5, B6 and B8 band_super.cu,
+B0 collide_rows.cu) against their plain versions on the same inputs on
+the GPU, B7 with B4's flags against B4 bit for bit, and the model's cuda
+backend against its torch backend, single-step, temporal (all three band
+legs) and sharded (shards sharing the card, every leg).  They carry the
+``cuda`` marker and skip on a host without a CUDA device.  This file
+imports no JAX, so on the GPU host (which has none) it runs without the
+JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -35,15 +38,27 @@ from cuda_iblb_11_tpu_torch.ops.band_super import (
 from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
     band_super_tiled, band_super_tiled_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
+    band_super_xsharded, band_super_xsharded_reference, shard_points,
+)
+from cuda_iblb_11_tpu_torch.ops.collide_rows import (
+    collide_rows, collide_rows_reference,
+)
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
     sharded_fused_substep_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
+    ghost_temporal, ghost_temporal_reference,
+)
 from cuda_iblb_11_tpu_torch.ops.temporal import (
-    band_super_resident, plan_temporal,
+    band_super_resident, plan_temporal, xshard_layout,
 )
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
+)
+from cuda_iblb_11_tpu_torch.parallel import (
+    ShardedPallasSim, ShardedTemporalSim, make_mesh,
 )
 
 GATE = {torch.float32: 1e-6, torch.float64: 1e-12}
@@ -293,9 +308,10 @@ def test_temporal_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError):       # halo shape
         sharded_fused_substep((0, 1, 0), f[:, :band + 16], force,
                               bh[:, :, :8], None, cfg)
-    with pytest.raises(NotImplementedError, match="x-sharded"):
+    with pytest.raises(ValueError, match="width"):   # x-shard + emission
         sharded_fused_substep((0, 1, 0), f[:, :band + 16, :96].contiguous(),
-                              force[:, :, :96].contiguous(), None, None, cfg)
+                              force[:, :, :96].contiguous(), None, None, cfg,
+                              emit_moments=True)
     assert (sharded_fused_substep.launches, temporal_bulk.launches) == \
         (n3, n4)   # refusals launch nothing
     cfg_s = SimConfig(**SUPER)
@@ -437,3 +453,161 @@ def test_sim_xtiled_cuda_matches_torch_backend(card, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))
+
+
+# --- B0, B7, B8 and the sharded path -----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b0_matches_plain_version(card, dtype, storage, top):
+    # an edge row and an edge column of a state, read in place (strided)
+    cfg = SimConfig(**SMALL)
+    f, force = random_inputs(cfg, storage, dtype, card, seed=8)
+    fo = torch.zeros((2,) + f.shape[1:], dtype=dtype, device=card)
+    fo[:, :cfg.force_band] = force
+    before = collide_rows.launches
+    for sl in (np.s_[:, 5:6, :], np.s_[:, :, 7:8], np.s_[:, :150, -1:]):
+        got = collide_rows(f[sl], fo[sl], cfg, "trt_split", storage)
+        want = collide_rows_reference(f[sl], fo[sl], cfg, "trt_split",
+                                      storage)
+        assert got.is_contiguous() and got.shape == want.shape
+        assert rel_l2(got, want) <= GATE[dtype]
+    assert collide_rows.launches == before + 3
+
+
+def _ghost_case(cfg, f, y0, yl, x0, xl, xpad, K, pad=16):
+    """Shard (y0, x0)'s block widened by xpad columns, its ghost rows and
+    the seam halos (f's own row band-1, perturbed), periodic in y and x."""
+    cols = torch.arange(x0 - xpad, x0 + xl + xpad, device=f.device) \
+        % cfg.xdim
+    rows = torch.arange(y0 - pad, y0 + yl + pad, device=f.device) % cfg.ydim
+    blk = f[:, rows][:, :, cols]
+    bh = f[None, :, cfg.force_band - 1][:, :, cols].repeat(K, 1, 1)
+    bh = bh * (1.0 + 1e-3 * torch.arange(K, device=f.device)[:, None, None])
+    return (blk[:, pad:pad + yl].contiguous(), blk[:, :pad].contiguous(),
+            blk[:, pad + yl:].contiguous(), bh.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 5])
+@pytest.mark.parametrize("y0,xpad", [(96, 0), (128, 128), (192, 128),
+                                     (192, 0)])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b7_matches_plain_version(card, K, y0, xpad, dtype, storage, top):
+    # an inject shard (the seam inside it, or at its bottom row), a top
+    # shard, with and without x ghost columns; held on the rows it owns
+    cfg = SimConfig(**SMALL)
+    band, yl, pad = cfg.force_band, 64, 16
+    xl = cfg.xdim if not xpad else 96
+    f, _ = random_inputs(cfg, storage, dtype, card, seed=9)
+    f_loc, bot, top_g, bh = _ghost_case(cfg, f, y0, yl, 0, xl, xpad, K)
+    lb = min(max(band - y0, 0), yl)
+    flags = (int(y0 <= band < y0 + yl), int(y0 + yl == cfg.ydim), pad + lb,
+             xpad + cfg.flux_x % xl, 1)
+    walls = ref.WallSpec(top=top)
+    before = ghost_temporal.launches
+    got = ghost_temporal(flags, f_loc, bot, top_g, bh, cfg, walls,
+                         "trt_split", storage)
+    want = ghost_temporal_reference(flags, f_loc, bot, top_g, bh, cfg, walls,
+                                    "trt_split", storage)
+    torch.cuda.synchronize()
+    assert ghost_temporal.launches == before + 1
+    own = np.s_[:, pad + lb:pad + yl, xpad:xpad + xl]
+    assert rel_l2(got[0][own], want[0][own]) <= GATE[dtype]
+    assert rel_l2(got[1], want[1]) <= GATE[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES)
+def test_b7_with_b4_flags_is_b4(card, dtype, storage, top):
+    # the bulk rows as one shard above the band, NaN ghost rows, the seam
+    # at its bottom row, the top wall and the flux column: B4 bit for bit
+    cfg = SimConfig(**SMALL)
+    band, K, pad = cfg.force_band, 5, 16
+    f, _ = random_inputs(cfg, storage, dtype, card, seed=10)
+    bh = f[None, :, band - 1].repeat(K, 1, 1).contiguous()
+    nan = torch.full((9, pad, cfg.xdim), float("nan"), dtype=dtype,
+                     device=card)
+    walls = ref.WallSpec(top=top)
+    b4 = temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split", storage)
+    b7 = ghost_temporal((1, 1, pad, cfg.flux_x, 1), f[:, band:], nan, nan,
+                        bh, cfg, walls, "trt_split", storage)
+    assert torch.equal(b7[0][:, pad:-pad], b4[0])
+    assert torch.equal(b7[1], b4[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_num,n_x", [(16, 2), (10, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b8_matches_plain_version(card, c_num, n_x, dtype):
+    # the uniform layout (xl a c_space multiple) and the phase-general one
+    cfg = SimConfig(c_num=c_num, c_space=128 if n_x == 2 else 256,
+                    ydim=256, dtype=str(dtype).split(".")[-1])
+    K = 4
+    storage = cfg.storage_resolved
+    xl = cfg.xdim // n_x
+    lay = xshard_layout(cfg, 8, K, ref.REFERENCE_WALLS, dtype, xl, n_x)
+    assert lay.phase_general == (xl % cfg.c_space != 0)
+    f, force = random_inputs(cfg, storage, dtype, card, seed=11)
+    sim = MucociliarySim(cfg, backend="torch", device=card, dtype=dtype)
+    _, u_s, eps, anchor, frac = sim.step_kinematics(137, K)
+    xs = [x[0] for x in prep_band_super_points(
+        cfg, K, lay.halo, dtype, u_s, eps, anchor, frac, 1)]
+    g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
+    for ix in range(n_x):
+        cols = torch.arange(ix * xl - lay.gx, (ix + 1) * xl + lay.gx,
+                            device=card) % cfg.xdim
+        f_ext = f[:, :cfg.force_band + 8][:, :, cols].contiguous()
+        fo = force[:, :, cols].contiguous()
+        pts = shard_points(lay, xs, cfg, ix, xl)
+        owned = ix * xl <= cfg.flux_x < (ix + 1) * xl
+        flags = (cfg.flux_x - ix * xl + lay.gx if owned else 0, int(owned))
+        before = band_super_xsharded.launches
+        args = (flags, f_ext, fo, *pts, cfg, lay, ref.REFERENCE_WALLS,
+                "trt_split", storage)
+        got = band_super_xsharded(*args)
+        want = band_super_xsharded_reference(*args)
+        torch.cuda.synchronize()
+        assert band_super_xsharded.launches == before + 1
+        _check_all(got[:3], want[:3], [("f_band", g), ("bhalos", g),
+                                       ("force", gi)])
+        if owned:
+            assert rel_l2(got[3], want[3]) <= gi
+        else:
+            assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,K,leg", [
+    ((2, 1), 1, "sharded_per_step"), ((2, 2), 1, "sharded_per_step"),
+    ((2, 1), 4, "band_super_whole"), ((2, 2), 4, "per_substep_tiled"),
+    ((1, 2), 4, "band_super_xsharded")])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
+    # every shard on the one card: the kernels against their plain
+    # versions through the whole sharded path, 2 K + 2 steps
+    cfg = SimConfig(c_num=16 if leg == "band_super_xsharded" else 3,
+                    c_space=128, ydim=256, dtype=dtype)
+    if leg == "band_super_xsharded" and dtype == "float64":
+        # the L2 rule: the f64 block of 2,048 columns (72.7 MB) exceeds
+        # the card's L2, so this mesh takes the per-sub-step leg
+        leg = "per_substep_tiled"
+    m = make_mesh(*mesh, devices=[card])
+    wrappers = (collide_rows, sharded_fused_substep, ghost_temporal,
+                band_super, band_super_xsharded)
+    states = {}
+    for backend in ("cuda", "torch"):
+        sim = (ShardedPallasSim(cfg, m, backend=backend) if K == 1 else
+               ShardedTemporalSim(cfg, m, temporal=K, backend=backend))
+        assert sim.resolved_config()["band_leg"] == leg
+        n0 = [w.launches for w in wrappers]
+        st = sim.run_chunk(sim.init_state(), 2 * K + 2)
+        launched = [w.launches - a for w, a in zip(wrappers, n0)]
+        assert (sum(launched) > 0) == (backend == "cuda"), launched
+        states[backend] = (sim, st)
+    (sc, a), (_, b) = states["cuda"], states["torch"]
+    ua, ub = sc.fields(a)[1], sc.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    gate = 1e-5 if dtype == "float32" else 1e-11
+    assert rel_l2(ua, ub) <= gate
+    assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30

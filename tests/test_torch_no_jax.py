@@ -1,5 +1,6 @@
-"""The torch port imports no JAX: a static scan of its sources, and a fresh
-interpreter that imports it and runs two steps on the CPU."""
+"""The torch port imports no JAX: a static scan of its sources (the sharded
+slice's modules among them), and a fresh interpreter that imports it and
+runs two steps on the CPU, then three on a (2, 2) mesh."""
 
 import ast
 import os
@@ -49,6 +50,10 @@ def test_port_sources_import_no_jax():
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad
     assert len(_port_sources()) > 10
+    # the sharded slice's modules are scanned too
+    names = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"parallel/sharded.py", "ops/collide_rows.py",
+            "ops/ghost_temporal.py", "ops/band_super_xsharded.py"} <= names
 
 
 _CHILD = r"""
@@ -62,6 +67,11 @@ sim = MucociliarySim(SimConfig(c_num=4, c_space=48, length=16, ydim=48),
                      device="cpu")
 st = sim.run_chunk(sim.init_state(), 2)
 assert st.it == 2
+from cuda_iblb_11_tpu_torch.parallel import ShardedTemporalSim, make_mesh
+cfg = SimConfig(c_num=3, c_space=128, ydim=288, length=16)
+sim = ShardedTemporalSim(cfg, make_mesh(2, 2, devices=["cpu"]), temporal=2)
+st = sim.run_chunk(sim.init_state(), 3)
+assert st.it == 3
 print("JAX-LOADED" if "jax" in sys.modules else "NO-JAX")
 """
 

@@ -75,3 +75,18 @@ def test_main_takes_the_8192_grid(monkeypatch):
         profile_step.main(["--grids", "8192x8192", "--temporal", "auto"])
     cfg = seen["cfg"]
     assert (cfg.xdim, cfg.ydim, cfg.c_num) == (8192, 8192, 64)
+
+
+def test_profile_sim_on_a_mesh_on_cpu():
+    # --mesh: the sharded sim (both shards on the CPU) through the same
+    # profiler
+    from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
+
+    cfg = SimConfig(c_num=3, c_space=128, length=16, ydim=288,
+                    dtype="float32")
+    sim = _make_mesh_sim(cfg, "auto", "trt_split", 2, "2,1", "periodic",
+                         "no_mucus", torch.device("cpu"))
+    assert sim.resolved_config()["mesh"] == [2, 1] and sim.temporal == 2
+    row = profile_step.profile_sim(sim, steps=2)
+    assert row["steps"] == 2 and row["wall_ms"] > 0
+    assert row["device_busy_ms"] is None and row["aten_ops"] > 10

@@ -15,6 +15,9 @@ Phases; any failure exits non-zero before the final line:
      slip) at 8192 x 8192:
        B2 fused step at all three (rel-L2 of f, q, fluxcol <= 1e-6 f32,
           1e-12 f64);
+       B2h the step without emission at all three, with the force band
+          and with the force over the whole height (the channel's), both
+          top walls (on the 8192 x 8192 case too; the same gates);
        B3 band-leg step on the extended band (band + the plan's pad) at
           288 x 192 and 2048 x 2048, flags [0,1,0] with a neighbour halo
           and [0,1,1] (f, f1 row, q, fluxcol: the same gates); at the
@@ -71,7 +74,28 @@ Phases; any failure exits non-zero before the final line:
      against the single-device auto run: velocity rel-L2 and flux rel
      <= 1e-5, exact launch counts, ms/step, MLUPS and peak memory; then the
      CLI with --mesh 2,1, 2,000 steps at 288 x 192: flux within 2e-5 of
-     the f64 golden and within 1e-5 of phase 3's unsharded auto run.
+     the f64 golden and within 1e-5 of phase 3's unsharded auto run;
+  6. the quirk path: the CLI of phase 3 with --ib-x-edge reference, with
+     --temporal 1 (one B2h launch per step), with auto (K = 16, the
+     per-sub-step leg with the stencil IB: 1,984 B3, 124 B4 and 16 B2h
+     launches), twice, and with --backend torch: each kernel run's flux
+     within 1e-5 of the torch run's and of the other's, the two auto runs'
+     Flux files equal byte for byte, SimLog naming stencil_quirk; then
+     2048 x 2048 (16 cilia) 512 steps cuda against torch backend, velocity
+     rel-L2 <= 1e-5, ms/step and MLUPS;
+  7. the validation models: the Poiseuille channel 16 x 32 (8,000 steps,
+     f64 raw and f32 deviatoric, every step a B2h launch) within 3e-3 of
+     its analytic profile; a 2048 x 2048 channel, 512 steps: B2h against
+     the plain version in f64 raw (f rel-L2 <= 1e-12), and in f32
+     deviatoric each against B2h in f64 (B2h no further from it than the
+     plain version) and against each other (velocity rel-L2 <= 1e-5),
+     ms/step and MLUPS; the lid-driven cavity 64 x 64 at Re 100, 30,000
+     plain torch steps on the card, within 0.025 lid units of Ghia;
+  8. the card's ceilings: P2, P3 and P1 (6,000 links) against their plain
+     versions, bit for bit, on seeded data that differs from element to
+     element (P2 and P3 into outputs filled with NaN; the plain fma link
+     rounds once, as fmaf does), then probe_bw (3 reps) and probe_vpu,
+     their GB/s and TFLOP/s and shares of the data sheet's peaks.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -116,15 +140,18 @@ FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 F64_FLOP_S = 34e12
-# Arithmetic operations per cell, counted from csrc/collide.cuh (a
-# multiply-add counts 2): collide_cell with force 163, without 101; the
-# moments of one cell (moments9) 19.  The IB coupling of one point: the
-# delta's support is 3 cells per axis (|r| < 1.5), so 6 delta
-# evaluations of ~15 operations, and on each of the 3 x 3 cells the
-# weight (1), 3 multiply-adds of interpolation and 2 of spreading; plus
-# the point's two amplitudes (~8).
-COLLIDE_FORCED, COLLIDE_FREE, MOMENTS = 163, 101, 19
-IB_POINT = 6 * 15 + 9 * (1 + 3 * 2 + 2 * 2) + 8
+
+# Arithmetic operations per cell (collide with and without force, the
+# moments of one cell) and per IB point: the package's one count
+# (probe_vpu.py).  Outside a checkout this import fails, and the script
+# exits non-zero before printing anything.
+sys.path.insert(0, REPO)
+from cuda_iblb_11_tpu_torch.probe_bw import card_line  # noqa: E402
+from cuda_iblb_11_tpu_torch.probe_vpu import (  # noqa: E402
+    COLLIDE_FORCED, COLLIDE_FREE, IB_POINT, MOMENTS,
+)
+
+PROBES = ("P1 probe_chain", "P2 probe_copy", "P3 probe_ring_copy")
 
 CASES = [("float32", "deviatoric", "slip"), ("float32", "deviatoric",
                                                "noslip"),
@@ -149,6 +176,14 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                           "cuda_iblb_11_tpu/ops/pallas_step.py:2189"),
     "B8 band_super_xsharded": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
                                "cuda_iblb_11_tpu/ops/pallas_step.py:1482"),
+    "B2h collide_stream": ("cuda_iblb_11_tpu_torch/csrc/fused_step.cu",
+                           "cuda_iblb_11_tpu/ops/pallas_step.py:583"),
+    "P1 probe_chain": ("cuda_iblb_11_tpu_torch/csrc/probes.cu",
+                       "scripts/probe_vpu.py:59"),
+    "P2 probe_copy": ("cuda_iblb_11_tpu_torch/csrc/probes.cu",
+                      "scripts/probe_bw.py:72"),
+    "P3 probe_ring_copy": ("cuda_iblb_11_tpu_torch/csrc/probes.cu",
+                           "scripts/probe_bw.py:117"),
 }
 
 
@@ -159,14 +194,6 @@ class SmokeFailure(RuntimeError):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def nvcc_version_line(nvcc):
@@ -182,7 +209,9 @@ def wrappers():
     from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
         band_super_xsharded,
     )
+    from cuda_iblb_11_tpu_torch.ops import probes
     from cuda_iblb_11_tpu_torch.ops.collide_rows import collide_rows
+    from cuda_iblb_11_tpu_torch.ops.collide_stream import collide_stream
     from cuda_iblb_11_tpu_torch.ops.fused_step import (
         fused_substep, sharded_fused_substep,
     )
@@ -192,7 +221,9 @@ def wrappers():
     return dict(zip(KERNELS, (fused_substep, sharded_fused_substep,
                               temporal_bulk, band_super, band_super_tiled,
                               collide_rows, ghost_temporal,
-                              band_super_xsharded)))
+                              band_super_xsharded, collide_stream,
+                              probes.probe_chain, probes.probe_copy,
+                              probes.probe_ring_copy)))
 
 
 def reset_launches():
@@ -214,33 +245,6 @@ def rel_l2(a, b):
 def max_abs(got, want):
     return max(float((g.double() - w.double()).abs().max())
                for g, w in zip(got, want) if w is not None)
-
-
-def cuda_ms(fn, reps):
-    """Mean device ms per call over `reps` calls, from CUDA events.  A
-    spin kernel ahead of the start event keeps the card busy while the
-    host enqueues the calls, so a call whose wrapper takes longer on the
-    host than its kernel on the card is timed by its kernel."""
-    import torch
-
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    torch.cuda._sleep(1 << 20)
-    end.record()
-    end.synchronize()
-    cycles_per_s = (1 << 20) / (start.elapsed_time(end) / 1e3)
-    torch.cuda._sleep(int(cycles_per_s * (1.5 * host_s * reps + 2e-3)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def random_inputs(cfg, storage, dtype, device, seed):
@@ -298,6 +302,30 @@ def case_b2(cfg, f, force, walls, storage):
         ("f", "q", "fluxcol"),
         es * (18 * y * x + 2 * band * x + 3 * band * x + 2 * y),
         COLLIDE_FORCED * y * x + MOMENTS * (band * x + y))
+
+
+def case_b2h(cfg, f, force, walls, storage, band):
+    """B2h, the step without emission, with the force over `band` rows:
+    the force band of the quirk mode's step, or the whole height as the
+    channel's body force (a seeded force of its own)."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.collide_stream import (
+        collide_stream, collide_stream_reference,
+    )
+
+    y, x = cfg.ydim, cfg.xdim
+    if band != force.shape[1]:
+        g = torch.Generator(device=f.device).manual_seed(band)
+        force = 1e-4 * torch.randn((2, band, x), generator=g,
+                                   dtype=f.dtype, device=f.device)
+    out = f.new_empty(f.shape)
+    args = (f, force, cfg.tau, cfg.tau2, walls, "trt_split", storage)
+    return KernelCase(
+        lambda: (collide_stream(*args, out=out),),
+        lambda: (collide_stream_reference(*args),), ("f",),
+        f.element_size() * (18 * y * x + 2 * band * x),
+        x * (COLLIDE_FORCED * band + COLLIDE_FREE * (y - band)))
 
 
 def case_b3(cfg, plan, f, force, walls, storage, flags, thalo):
@@ -358,7 +386,7 @@ def super_points(cfg, plan, dtype):
     )
 
     sim = MucociliarySim(cfg, backend="cuda", device=DEVICE, dtype=dtype)
-    _, u_s, eps, anchor, frac = sim.step_kinematics(1000, plan.K)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(1000, plan.K)
     return [p[0] for p in prep_band_super_points(
         cfg, plan.K, plan.halo, sim.aux_dtype, u_s, eps, anchor, frac, 1)]
 
@@ -633,6 +661,13 @@ def phase_kernels(record):
             g = {"*": GATE[dt]}
             run("B2 fused_step", gname, dt, storage, top,
                 case_b2(cfg, f, force, walls, storage), g)
+            # B2h at the quirk step's band and the channel's whole height;
+            # both top walls on the big grid's one input set
+            for top_h in (top,) if gname != big_name else ("slip", "noslip"):
+                for band in (cfg.force_band, cfg.ydim):
+                    run("B2h collide_stream", gname, dt, storage, top_h,
+                        case_b2h(cfg, f, force, ref.WallSpec(top=top_h),
+                                 storage, band), g, f"band={band}")
             if gname != big_name:
                 thalo = (f[:, cfg.force_band + plan.pad] * 1.001).contiguous()
                 for flags, th in (((0, 1, 0), thalo), ((0, 1, 1), None)):
@@ -737,7 +772,8 @@ def phase_kernels(record):
                 del b7
             del f, force
             torch.cuda.empty_cache()
-    check(set(worst) == set(KERNELS), f"kernels held: {sorted(worst)}")
+    check(set(worst) == set(KERNELS) - set(PROBES),
+          f"kernels held: {sorted(worst)}")
     check(len(timed_big) == 4 and len(timed_f64) == 2,
           "B5, B6, B7 and B0 were not held at 8192^2 f32, B5 and B6 at "
           "2048^2 f64")
@@ -776,11 +812,13 @@ def time_case(kname, kc, shape, reps, plain_reps, worst, flop_s=F32_FLOP_S):
     (operations over flop_s, the peak of the inputs' type)."""
     import torch
 
+    from cuda_iblb_11_tpu_torch.ops.probes import device_ms
+
     for fn in (kc.kern, kc.plain):
         fn()
     torch.cuda.synchronize()
-    t = [cuda_ms(kc.plain, plain_reps), cuda_ms(kc.kern, reps),
-         cuda_ms(kc.kern, reps), cuda_ms(kc.plain, plain_reps)]
+    t = [device_ms(kc.plain, plain_reps), device_ms(kc.kern, reps),
+         device_ms(kc.kern, reps), device_ms(kc.plain, plain_reps)]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     bytes_ms = kc.nbytes / HBM_BYTES_S * 1e3
     flop_ms = kc.nflop / flop_s * 1e3
@@ -807,6 +845,9 @@ def time_case(kname, kc, shape, reps, plain_reps, worst, flop_s=F32_FLOP_S):
 # --- phase 3: the CLI, single-step and temporal auto ----------------------
 
 def run_cli(label, extra, gold, record):
+    """The port's CLI at MAIN_ARGV with `extra` flags: its launches, SimLog
+    and flux at FLUX_ITS, each held within 1e-3 of the f64 golden `gold`
+    (None: recorded only)."""
     import numpy as np
 
     from cuda_iblb_11_tpu_torch import SimConfig, cli
@@ -830,6 +871,9 @@ def run_cli(label, extra, gold, record):
         hit = np.isclose(flux[:, 0], it * cfg.t_scale, rtol=1e-5)
         check(hit.sum() == 1, f"{label}: no flux row at it={it}")
         q = float(flux[hit, 1][0]) / cfg.x_scale
+        if gold is None:
+            rows.append(dict(it=it, q=q))
+            continue
         q_ref = float(gold[gold[:, 0] == it, 1][0])
         rel = abs(q - q_ref) / abs(q_ref)
         rows.append(dict(it=it, q=q, q_golden_f64=q_ref, rel=rel))
@@ -845,6 +889,12 @@ def run_cli(label, extra, gold, record):
                          launches=launches, flux=rows, simlog_mlups=mlups)
     print(f"    {mlups[0] if mlups else ''}", flush=True)
     return cfg, launches, simlog, {r["it"]: r["q"] for r in rows}
+
+
+def flux_bytes(label):
+    with open(os.path.join(REPO, "build", "chip_smoke", label, "Flux",
+                           "1_6_48_1_1x5-flux.dat"), "rb") as fh:
+        return fh.read()
 
 
 def phase_main_path(record):
@@ -1116,6 +1166,297 @@ def phase_mesh(record, q_auto):
     return launched
 
 
+# --- phase 6: the quirk path ----------------------------------------------
+
+QUIRK = ["--ib-x-edge", "reference"]
+
+
+def phase_quirk(record):
+    """The CLI in the strict-parity quirk mode three ways (B2h per step,
+    auto's per-sub-step leg, the plain versions), auto twice; then 2048^2
+    with 16 cilia, cuda against torch backend.  Returns the launches of
+    the --temporal 1 run."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+
+    print("== phase 6: the quirk path (--ib-x-edge reference)", flush=True)
+    runs = {}
+    for label, extra in (("quirk_temporal_1", ["--temporal", "1"]),
+                         ("quirk_auto", []), ("quirk_auto_again", []),
+                         ("quirk_torch", ["--backend", "torch"])):
+        cfg, n, log, q = run_cli(label, QUIRK + extra, None, record)
+        check("IB path: stencil_quirk" in log,
+              f"{label}: SimLog does not name the stencil_quirk IB path")
+        runs[label] = (n, log, q)
+    steps, interval = cfg.iterations, cfg.interval
+    n_super = min(interval, 512) // K
+    rest = (interval - n_super * K) * (steps // interval)
+    n_super *= steps // interval
+    zero = dict.fromkeys(KERNELS, 0)
+    want = {"quirk_temporal_1": {**zero, "B2h collide_stream": steps},
+            "quirk_auto": {**zero, "B3 sharded_fused_step": n_super * K,
+                           "B4 temporal_bulk": n_super,
+                           "B2h collide_stream": rest},
+            "quirk_torch": zero}
+    want["quirk_auto_again"] = want["quirk_auto"]
+    for label, (n, log, _) in runs.items():
+        check(n == want[label], f"{label} launches {n}, expected "
+                                f"{want[label]}")
+    check("Kernel path: single_step" in runs["quirk_temporal_1"][1]
+          and "Kernel path: per_substep" in runs["quirk_auto"][1]
+          and "Temporal K: 16 (auto: K=16" in runs["quirk_auto"][1],
+          "SimLog does not record the quirk legs")
+    q_torch = runs["quirk_torch"][2]
+    rel = {}
+    for label in ("quirk_temporal_1", "quirk_auto"):
+        rel[label] = {it: abs(runs[label][2][it] - q_torch[it])
+                      / abs(q_torch[it]) for it in FLUX_ITS}
+    rel["auto_vs_temporal_1"] = {
+        it: abs(runs["quirk_auto"][2][it] - runs["quirk_temporal_1"][2][it])
+        / abs(runs["quirk_temporal_1"][2][it]) for it in FLUX_ITS}
+    same = flux_bytes("quirk_auto") == flux_bytes("quirk_auto_again")
+    record["quirk_flux_rel"] = rel
+    record["quirk_auto_runs_byte_identical"] = same
+    print(f"  flux rel: {rel}; two auto runs byte-identical: {same}",
+          flush=True)
+    for label, r in rel.items():
+        check(max(r.values()) <= 1e-5, f"quirk flux {label}: {r}")
+    check(same, "two quirk auto runs wrote different Flux files")
+
+    name = TIMING_GRID
+    c, sp, y = GRIDS[name]
+    cfg = SimConfig(c_num=c, c_space=sp, ydim=y)
+    rows, us = [], {}
+    for b in ("cuda", "torch"):
+        sim = MucociliarySim(cfg, backend=b, device=DEVICE,
+                             ib_x_edge="reference")
+        sim.run_chunk(sim.init_state(), 4)
+        reset_launches()
+        st, sec = _timed_run(sim, REAL_SIZE_STEPS)
+        launches = {k: v for k, v in read_launches().items() if v}
+        us[b] = sim.fields(st)[1]
+        check(bool(torch.isfinite(us[b]).all()), f"quirk {name} {b}: "
+                                                 "non-finite")
+        _report(rows, name, f"quirk backend {b}", cfg, st, sec,
+                REAL_SIZE_STEPS, launches=launches)
+    err = rel_l2(us["cuda"], us["torch"])
+    print(f"  quirk {name} velocity rel-L2 cuda vs torch: {err:.3e}",
+          flush=True)
+    rows.append(dict(grid=name, velocity_rel_l2_cuda_vs_torch=err))
+    check(err <= 1e-5, f"quirk {name}: cuda vs torch velocity rel-L2 {err}")
+    record["quirk_real_size"] = rows
+    return runs["quirk_temporal_1"][0]
+
+
+# --- phase 7: the validation models ---------------------------------------
+
+GHIA_Y = (0.0625, 0.1016, 0.2813, 0.4531, 0.6172, 0.7344, 0.9531)
+GHIA_UX = (-0.04192, -0.06434, -0.15662, -0.21090, -0.13641, 0.00332,
+           0.68717)
+GHIA_X = (0.0703, 0.2344, 0.5000, 0.8047, 0.9063, 0.9453)
+GHIA_UY = (0.10091, 0.17527, 0.05454, -0.24533, -0.16914, -0.10313)
+
+
+def phase_models(record):
+    """The Poiseuille channel through B2h against its analytic profile
+    (f64 raw and f32 deviatoric), a 2048^2 channel through B2h against the
+    plain version (f64 raw and f32 deviatoric), and the cavity against
+    Ghia."""
+    import numpy as np
+    import torch
+
+    from cuda_iblb_11_tpu_torch.models import channel
+    from cuda_iblb_11_tpu_torch.models.cavity import LidDrivenCavity
+    from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
+    from cuda_iblb_11_tpu_torch.ops.collide_stream import (
+        collide_stream_reference,
+    )
+
+    print("== phase 7: the validation models on the card", flush=True)
+    rows = []
+    for dtype, storage in ((torch.float64, "raw"),
+                           (torch.float32, "deviatoric")):
+        ch = PoiseuilleChannel(16, 32, tau=1.0, dtype=dtype, device=DEVICE,
+                               storage=storage)
+        reset_launches()
+        t0 = time.perf_counter()
+        f = ch.run(ch.init_f(), 8000)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: v for k, v in read_launches().items() if v}
+        got = ch.profile(f).double().cpu().numpy()
+        want = ch.analytic_profile()
+        err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        rows.append(dict(model="channel 16x32", dtype=str(dtype),
+                         storage=storage, steps=8000, rel_l2_analytic=err,
+                         ms_per_step=1e3 * sec / 8000, launches=launches))
+        print(f"  channel 16x32 {dtype} {storage}: rel-L2 vs analytic "
+              f"{err:.3e}, {1e3 * sec / 8000:.4f} ms/step, {launches}",
+              flush=True)
+        check(err < 3e-3, f"channel {dtype}: {err} off the analytic profile")
+        check(launches == {"B2h collide_stream": 8000},
+              f"channel {dtype} launches {launches}")
+
+    # 2048^2, band = ydim: B2h against the plain version in f64 raw, f at
+    # 1e-12 after 512 steps (the gate that fails a wrong force row or wall
+    # at band = ydim), and the same pair in f32 deviatoric, each against
+    # B2h in f64.  The flow is the same in every column and grows steadily
+    # from rest, so f32 round-off accumulates coherently over the steps
+    # instead of averaging out (1.5e-5 to 2.2e-5 against f64 after 512
+    # steps): in f32 B2h must be no further from the f64 run than the
+    # plain version is, and within 1e-5 of it.
+    n = REAL_SIZE_STEPS
+    cells = 2048 * 2048
+    runs, f64 = {}, {}
+    for label, dtype, storage in (("B2h", torch.float32, "deviatoric"),
+                                  ("plain", torch.float32, "deviatoric"),
+                                  ("B2h f64", torch.float64, "raw"),
+                                  ("plain f64", torch.float64, "raw")):
+        ch = PoiseuilleChannel(2048, 2048, tau=1.0, body_force=1e-6,
+                               dtype=dtype, device=DEVICE, storage=storage)
+        f = ch.init_f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label.startswith("plain"):
+            for _ in range(n):
+                f = collide_stream_reference(f, ch.force, ch.tau, ch.tau2,
+                                             ch.walls, channel.FORCING,
+                                             ch.storage)
+        else:
+            f = ch.run(f, n)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        runs[label] = (ch.profile(f).double(), 1e3 * sec / n,
+                       cells * n / sec / 1e6)
+        if dtype == torch.float64:
+            f64[label] = f
+        del f, ch
+    ref64 = runs["B2h f64"][0]
+    err = {"B2h vs f64": rel_l2(runs["B2h"][0], ref64),
+           "plain vs f64": rel_l2(runs["plain"][0], ref64),
+           "B2h vs plain": rel_l2(runs["B2h"][0], runs["plain"][0]),
+           "B2h f64 vs plain f64": rel_l2(ref64, runs["plain f64"][0])}
+    f64_err = rel_l2(f64["B2h f64"], f64["plain f64"])
+    rows.append(dict(model="channel 2048x2048", steps=n,
+                     velocity_rel_l2=err, f_rel_l2_b2h_vs_plain_f64=f64_err,
+                     ms_per_step={k: v[1] for k, v in runs.items()},
+                     mlups={k: v[2] for k, v in runs.items()}))
+    print(f"  channel 2048^2, {n} steps: f rel-L2 B2h f64 vs plain f64 "
+          f"{f64_err:.3e}; velocity rel-L2 "
+          + ", ".join(f"{k} {e:.3e}" for k, e in err.items()) + "; "
+          + ", ".join(f"{k} {v[1]:.4f} ms/step ({v[2]:.0f} MLUPS)"
+                      for k, v in runs.items()), flush=True)
+    check(f64_err <= 1e-12, f"channel 2048^2 f64: B2h vs plain {f64_err}")
+    check(err["B2h vs f64"] <= err["plain vs f64"]
+          and err["B2h vs plain"] <= 1e-5, f"channel 2048^2: {err}")
+    del runs, ref64, f64
+
+    cav = LidDrivenCavity(64, 100.0, 0.1, device=DEVICE)
+    t0 = time.perf_counter()
+    f = cav.run(cav.init_f(), 30000)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ux, uy = (u.cpu().numpy() for u in cav.centreline_profiles(f))
+    pos = (np.arange(cav.n) + 0.5) / cav.n
+    dev = max(float(np.abs(np.interp(GHIA_Y, pos, ux) - GHIA_UX).max()),
+              float(np.abs(np.interp(GHIA_X, pos, uy) - GHIA_UY).max()))
+    rows.append(dict(model="cavity 64 Re 100", steps=30000,
+                     max_dev_ghia=dev, ms_per_step=1e3 * sec / 30000))
+    print(f"  cavity 64^2 Re 100, 30,000 steps (plain torch on the card): "
+          f"max |dev| from Ghia {dev:.4f} lid units, "
+          f"{1e3 * sec / 30000:.4f} ms/step", flush=True)
+    check(dev <= 0.025, f"cavity: {dev} lid units off Ghia")
+    record["models"] = rows
+
+
+# --- phase 8: the card's ceilings ------------------------------------------
+
+def phase_probes(record):
+    """probe_bw (P2, P3) and probe_vpu (P1), each kernel against its plain
+    version first; returns (launches, the kernels-line rows of P1-P3)."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import probe_bw, probe_vpu
+    from cuda_iblb_11_tpu_torch.ops import probes
+
+    print("== phase 8: the card's ceilings (P1-P3)", flush=True)
+    # each kernel against its plain version (these launches do not count),
+    # on seeded data that differs from element to element, into NaN
+    xb = probe_bw.seeded_input(8)
+    copy_err = probe_bw.check_against_plain(xb, torch.empty_like(xb))
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    x = 0.5 + torch.rand(probe_vpu.SHAPE, generator=g, device=DEVICE)
+    chain_err, chain_abs = {}, {}
+    for op in probes.CHAIN_OPS:
+        got = probes.probe_chain(x, probe_vpu.R2, op)
+        want = probes.probe_chain_reference(x, probe_vpu.R2, op)
+        chain_err[op] = rel_l2(got, want)
+        chain_abs[op] = float((got - want).abs().max())
+    # the probes' own runs, counted
+    reset_launches()
+    bw = probe_bw.measure(reps=3, check=False)
+    vpu = probe_vpu.measure(steps=REAL_SIZE_STEPS)
+    launches = {k: v for k, v in read_launches().items() if k in PROBES}
+    bw["max_abs_err_vs_plain"] = copy_err
+    record["probe_bw"], record["probe_vpu"] = bw, vpu
+    record["probe_chain_rel_l2_vs_plain"] = chain_err
+    for name, e in copy_err.items():
+        check(e == 0.0, f"{name}: not bit for bit with its plain version "
+                        f"({e})")
+    check(max(chain_abs.values()) == 0.0, f"P1 vs plain: {chain_err}")
+    pat = bw["patterns"]
+    for name in ("P2 copy threads=256 grid=vec",
+                 "P3 ring copy tile=32KiB depth=2", "copy_ (library)",
+                 bw["best_kernel_pattern"],
+                 "B2 step kernel (implied at 72 B/cell)"):
+        print(f"  {name}: {pat[name]['median_gbs']:.1f} GB/s median, "
+              f"{pat[name]['share_of_peak']:.3f} of the data sheet's "
+              f"3,350 GB/s", flush=True)
+    for op, tf in vpu["tflops_by_op"].items():
+        print(f"  P1 {op} chain: {tf:.2f} TFLOP/s, {tf / 67:.3f} of the "
+              "data sheet's 67 TFLOP/s", flush=True)
+    print(f"  P1 vs plain rel-L2: {chain_err}; chain SASS "
+          f"{vpu['chain_sass']}", flush=True)
+    print(f"  port 2048^2 auto: {vpu['port_2048']['mlups']:.0f} MLUPS, "
+          f"{vpu['useful_share_of_measured_fma']:.3f} of the measured fma "
+          f"rate", flush=True)
+
+    # the kernels-line rows: each probe's time on its default shape
+    nbytes = 2 * xb.numel() * 4
+    ms = {k: nbytes / (pat[k]["median_gbs"] * 1e9) * 1e3
+          for k in ("P2 copy threads=256 grid=vec",
+                    "P3 ring copy tile=32KiB depth=2", "copy_ (library)")}
+    copy_plain = probes.device_ms(lambda: probes.probe_copy_reference(xb),
+                                  20)
+    ring_plain = probes.device_ms(
+        lambda: probes.probe_ring_copy_reference(xb), 20)
+    chain_plain = probes.device_ms(
+        lambda: probes.probe_chain_reference(x, probe_vpu.R2, "fma"), 1)
+    fma_ops = x.numel() * 2 * probe_vpu.R2
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    rows = {
+        "P1 probe_chain": dict(
+            ms=vpu["chain_times_ms"]["fma"]["ms_r2"], plain_ms=chain_plain,
+            bound_ms=fma_ops / F32_FLOP_S * 1e3, bound_by="operations",
+            library_ms=None, max_abs_err=chain_abs["fma"]),
+        "P2 probe_copy": dict(
+            ms=ms["P2 copy threads=256 grid=vec"], plain_ms=copy_plain,
+            bound_ms=bytes_ms, bound_by="bytes",
+            library_ms=ms["copy_ (library)"],
+            max_abs_err=max(v for k, v in copy_err.items()
+                            if k.startswith("P2"))),
+        "P3 probe_ring_copy": dict(
+            ms=ms["P3 ring copy tile=32KiB depth=2"], plain_ms=ring_plain,
+            bound_ms=bytes_ms, bound_by="bytes",
+            library_ms=ms["copy_ (library)"],
+            max_abs_err=max(v for k, v in copy_err.items()
+                            if k.startswith("P3"))),
+    }
+    record["probe_kernel_rows"] = rows
+    return launches, rows
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
@@ -1129,12 +1470,11 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from cuda_iblb_11_tpu_torch.ops import _kernels
 
     record = {}
     print("== phase 1: environment", flush=True)
-    smi = nvidia_smi_line()
+    smi = card_line()
     nvcc = _kernels.find_nvcc()
     env = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                nvcc=nvcc_version_line(nvcc), python=sys.version.split()[0])
@@ -1153,10 +1493,15 @@ def main():
     n_single, n_auto, q_auto = phase_main_path(record)
     n_super, n_xtiled = phase_real_size(record)
     n_mesh = phase_mesh(record, q_auto)
+    n_quirk = phase_quirk(record)
+    phase_models(record)
+    n_probes, probe_rows = phase_probes(record)
+    timings.update(probe_rows)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
     # 2048^2 temporal run, B6 on the 8192^2 temporal run, B7 and B8 on the
-    # 2048^2 (2, 2) mesh, B0 on the 8192^2 (2, 2) mesh
+    # 2048^2 (2, 2) mesh, B0 on the 8192^2 (2, 2) mesh, B2h on the quirk
+    # CLI with --temporal 1, P1-P3 on the probes' own runs
     m22 = n_mesh["2048x2048 mesh 2,2"]
     launches = {"B2 fused_step": n_single["B2 fused_step"],
                 "B3 sharded_fused_step": n_auto["B3 sharded_fused_step"],
@@ -1166,7 +1511,9 @@ def main():
                 "B0 collide_rows":
                     n_mesh["8192x8192 mesh 2,2"]["B0 collide_rows"],
                 "B7 ghost_temporal": m22["B7 ghost_temporal"],
-                "B8 band_super_xsharded": m22["B8 band_super_xsharded"]}
+                "B8 band_super_xsharded": m22["B8 band_super_xsharded"],
+                "B2h collide_stream": n_quirk["B2h collide_stream"],
+                **n_probes}
     for kname, n in launches.items():
         check(n > 0, f"{kname} was not launched on its path")
 
@@ -1176,14 +1523,15 @@ def main():
         max_abs_err=timings[kname]["max_abs_err"],
         ms=timings[kname]["ms"], plain_ms=timings[kname]["plain_ms"],
         bound_ms=timings[kname]["bound_ms"],
-        bound_by=timings[kname]["bound_by"], library_ms=None)
+        bound_by=timings[kname]["bound_by"],
+        library_ms=timings[kname].get("library_ms"))
         for kname, (src, rep) in KERNELS.items()]}
     record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
     with open(args.record, "w") as fh:
         json.dump(record, fh, indent=1)
     print(json.dumps(kernels))
-    print(nvidia_smi_line())
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

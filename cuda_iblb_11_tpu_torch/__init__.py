@@ -10,17 +10,19 @@ ctypes (``ops/_kernels.py``).
 Layout:
     core/      SimConfig, lattice constants, state tensors
     ops/       torch oracle, IB coupling (stencil + band matmuls), the
-               kernel wrappers with their plain versions (fused step,
-               temporal bulk, band super-step), temporal eligibility, the
-               kernel loader
+               kernel wrappers with their plain versions (fused step, the
+               step without emission, temporal bulk, band super-step, the
+               probes), temporal eligibility, the kernel loader
     models/    cilia kinematics (f64) + the mucociliary model (single-step
-               and K-step temporal)
+               and K-step temporal, the quirk mode), the validation
+               channel and cavity
     io/        output writers (+ native C++ writers), npz checkpoints in
                the JAX package's format
     utils/     timing
     csrc/      CUDA sources
     runner.py  interval-driven run loop
     cli.py     the reference's 10 positional args + framework flags
+    probe_bw.py, probe_vpu.py  the card's own copy and f32 ceilings
 """
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig

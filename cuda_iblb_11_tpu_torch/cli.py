@@ -67,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ib-x-edge", default="periodic",
                    choices=["periodic", "reference"],
                    help="IB stencil at the periodic x edges; 'reference' "
-                        "(the quirk mode) is not yet ported")
+                        "is the strict-parity quirk mode (the stencil IB "
+                        "of the reference's unwrapped indexing; one device "
+                        "only)")
     p.add_argument("--mesh", default=None, metavar="Y,X",
                    help="shard the grid over a Y,X mesh spread over the "
                         "visible devices of --device (shards share a card "

@@ -1,4 +1,4 @@
-// B2 and B3: one fused D2Q9 TRT + Guo collide and pull-stream pass.
+// B2, B3 and B2h: one fused D2Q9 TRT + Guo collide and pull-stream pass.
 //
 // Replaces cuda_iblb_11_tpu/ops/pallas_step.py:_pipelined_kernel (:181) as
 // built by
@@ -9,8 +9,23 @@
 //       flags [y0, is_bottom, is_top], neighbour f1 halo rows pulled in
 //       where a wall flag is off, the f1 of one row exposed (the temporal
 //       bulk's seam halo), q and the flux column.
-// Both are the one kernel of step.cuh (B2 is B3 with flags [0, 1, 1] and
-// no halos), whose source header says what it computes, what bounds it on
+//   B2h make_fused_substep(pipeline=False) (:444, call :583, kernel
+//       _collide_stream_kernel :75): collide + stream over the whole
+//       domain with both walls and no emission.  The one emission-free
+//       entry, iblb_collide_stream, is the port of both configurations
+//       that lack emission: pipeline=False (the TPU's halo-band variant)
+//       and pipeline=True, emit_moments=False (the strict-parity quirk
+//       path, models/mucociliary.py:186-192).  The TPU keeps two variants
+//       for VMEM and DMA ordering (the lag-1 in-place pipeline, :548-557,
+//       and the halo-band copy, :53-72); on Hopper both are the port's
+//       two-buffer halo-collide step, here instantiated without the q,
+//       fluxcol and exposed-row code.  The force is read over rows < band
+//       (band <= ydim; band = ydim for the validation channel's body
+//       force) and zero above.  Bound on an H100: 9 reads and 9 writes of
+//       f and 2 force values per band cell, 304 MB at 2048^2 f32 with band
+//       128, so 0.091 ms at 3.35 TB/s.
+// All three are the one kernel of step.cuh (B2 is B3 with flags [0, 1, 1]
+// and no halos), whose source header says what it computes, what bounds it on
 // an H100 (memory: about 80 B/cell, so a 2048 x 2048 step needs at least
 // 0.09 ms at 3.35 TB/s) and what its design does about that.  The collide
 // is collide_cell of collide.cuh (B1), shared with every other kernel.
@@ -87,6 +102,31 @@ int sharded_step(const void* f_in, long long in_plane, void* f_out,
   return launch_step<T>(a, force != nullptr, (cudaStream_t)stream);
 }
 
+// B2h: the step of fused_step without emission; band <= ydim force rows.
+template <typename T>
+int collide_stream(const void* f_in, const void* force, void* f_out,
+                   int ydim, int xdim, int band, double tau, double tau2,
+                   int forcing_trt, int deviatoric, int top_noslip,
+                   void* stream) {
+  StepArgs<T> a{};
+  a.f_in = (const T*)f_in;
+  a.in_plane = (long long)ydim * xdim;
+  a.f_out = (T*)f_out;
+  a.out_plane = a.in_plane;
+  a.out_rows = ydim;
+  a.rows = ydim;
+  a.xdim = xdim;
+  a.force = (const T*)force;
+  a.band = band;
+  a.y0 = 0;
+  a.is_bottom = 1;
+  a.top_row = ydim - 1;
+  a.top_noslip = top_noslip;
+  a.expose_row = -1;
+  a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
+  return launch_step<T>(a, true, (cudaStream_t)stream, false);
+}
+
 }  // namespace
 
 // C interface (ctypes): every pointer and the stream are void*, the return
@@ -125,6 +165,19 @@ IBLB_FUSED(iblb_fused_step_f64, double)
   }
 IBLB_SHARDED(iblb_sharded_step_f32, float)
 IBLB_SHARDED(iblb_sharded_step_f64, double)
+
+// B2h: flags [0, 1, 1], no halos, no emission.
+#define IBLB_COLLIDE_STREAM(NAME, T)                                         \
+  extern "C" int NAME(const void* f_in, const void* force, void* f_out,      \
+                      int ydim, int xdim, int band, double tau, double tau2, \
+                      int forcing_trt, int deviatoric, int top_noslip,       \
+                      void* stream) {                                        \
+    return collide_stream<T>(f_in, force, f_out, ydim, xdim, band, tau,      \
+                             tau2, forcing_trt, deviatoric, top_noslip,      \
+                             stream);                                        \
+  }
+IBLB_COLLIDE_STREAM(iblb_collide_stream_f32, float)
+IBLB_COLLIDE_STREAM(iblb_collide_stream_f64, double)
 
 extern "C" const char* iblb_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

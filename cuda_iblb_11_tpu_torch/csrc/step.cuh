@@ -1,6 +1,6 @@
 // The collide + pull-stream step over a block of rows, shared by B2/B3
-// (fused_step.cu), B4 and B7 (ghost_temporal.cu) and the first stage of
-// each B5/B6/B8 sub-step (band_super.cu).
+// and B2h (fused_step.cu), B4 and B7 (ghost_temporal.cu) and the first
+// stage of each B5/B6/B8 sub-step (band_super.cu).
 //
 // Replaces the body of cuda_iblb_11_tpu/ops/pallas_step.py:_pipelined_kernel
 // (:181), both as make_fused_substep builds it (B2: the whole domain) and
@@ -23,7 +23,10 @@
 //   4. outputs: the streamed rows r < out_rows; the f1 of row expose_row
 //      ([9, X], the temporal bulk's seam halo); q = (rho, mom_x, mom_y)
 //      for rows r < q_rows; fluxcol = (rho, mom_x) at x = flux_x for every
-//      row.  Every output but the streamed rows is optional.
+//      row.  Every output but the streamed rows is optional, and the
+//      kEmit = false instantiation (B2h, the collide + stream without
+//      emission) carries none of their code: it writes the streamed rows
+//      only.
 //
 // Design: one block per 32 x 8 tile.  The block collides its tile plus a
 // one-cell halo (34 x 10 cells) into shared memory (9 x 10 x 34 values,
@@ -90,7 +93,7 @@ struct StepArgs {
   Coeffs<T> k;
 };
 
-template <typename T, bool kForced>
+template <typename T, bool kForced, bool kEmit = true>
 __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
   __shared__ T s[9][SY][SX];
   const int x0 = blockIdx.x * TX;
@@ -131,8 +134,8 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
         gyv = a.force[fplane + jf];
       }
       collide_cell<T, kForced>(fi, gxv, gyv, a.k, f1);
-      if (r == a.expose_row && ly >= 1 && ly <= TY && lx >= 1 && lx <= TX
-          && x0 + lx - 1 < xdim) {
+      if (kEmit && r == a.expose_row && ly >= 1 && ly <= TY && lx >= 1
+          && lx <= TX && x0 + lx - 1 < xdim) {
 #pragma unroll
         for (int d = 0; d < 9; ++d) a.f1out[d * xdim + gx] = f1[d];
       }
@@ -189,27 +192,34 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
 #pragma unroll
     for (int d = 0; d < 9; ++d) a.f_out[d * a.out_plane + j] = p[d];
   }
-  if (r < a.q_rows || (a.fluxcol && x == a.flux_x)) {
-    T rho, mom_x, mom_y;
-    moments9(p, a.k.deviatoric, rho, mom_x, mom_y);
-    if (r < a.q_rows) {
-      const long long qplane = (long long)a.q_rows * xdim;
-      a.q[j] = rho;
-      a.q[qplane + j] = mom_x;
-      a.q[2 * qplane + j] = mom_y;
-    }
-    if (a.fluxcol && x == a.flux_x) {
-      a.fluxcol[r] = rho;
-      a.fluxcol[a.rows + r] = mom_x;
+  if constexpr (kEmit) {
+    if (r < a.q_rows || (a.fluxcol && x == a.flux_x)) {
+      T rho, mom_x, mom_y;
+      moments9(p, a.k.deviatoric, rho, mom_x, mom_y);
+      if (r < a.q_rows) {
+        const long long qplane = (long long)a.q_rows * xdim;
+        a.q[j] = rho;
+        a.q[qplane + j] = mom_x;
+        a.q[2 * qplane + j] = mom_y;
+      }
+      if (a.fluxcol && x == a.flux_x) {
+        a.fluxcol[r] = rho;
+        a.fluxcol[a.rows + r] = mom_x;
+      }
     }
   }
 }
 
+// emit = false: the forced instantiation without emission (B2h); the
+// expose_row, q and fluxcol arguments are then ignored.
 template <typename T>
-int launch_step(const StepArgs<T>& a, bool forced, cudaStream_t stream) {
+int launch_step(const StepArgs<T>& a, bool forced, cudaStream_t stream,
+                bool emit = true) {
   const dim3 block(TX, TY);
   const dim3 grid((a.xdim + TX - 1) / TX, (a.rows + TY - 1) / TY);
-  if (forced) {
+  if (!emit) {
+    step_kernel<T, true, false><<<grid, block, 0, stream>>>(a);
+  } else if (forced) {
     step_kernel<T, true><<<grid, block, 0, stream>>>(a);
   } else {
     step_kernel<T, false><<<grid, block, 0, stream>>>(a);

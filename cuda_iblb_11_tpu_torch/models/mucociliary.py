@@ -11,6 +11,14 @@ Backends: "cuda" (the hand kernels of csrc/ through their wrappers in
 ops/), "torch" (their plain versions, on any device), "auto" ("cuda" on a
 CUDA device, "torch" on the CPU; the reason is kept in backend_reason).
 
+ib_x_edge "reference" is the strict-parity quirk mode (JAX
+mucociliary.py:105-111, 337-346): the step is collide + stream without
+emission (B2h, ops/collide_stream), then the stencil IB of ops/ib on the
+raw positions (interpolation row-aliasing the unwrapped flat index,
+spreading dropping the periodic images) and the flux from the new f's
+column; its K-step leg is the per-sub-step one, with the stencil IB after
+each B3 call.
+
 temporal: K > 1 runs whole multiples of K steps as K-step super-steps
 (ops/temporal.py says which configurations can): the force-free bulk rows
 above the IB band advance K steps in one call of B4 (ops/temporal_bulk),
@@ -43,6 +51,9 @@ from cuda_iblb_11_tpu_torch.ops.band_super import (
 from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
     band_super_tiled, band_super_tiled_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.collide_stream import (
+    collide_stream, collide_stream_reference,
+)
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
     sharded_fused_substep_reference,
@@ -54,8 +65,8 @@ from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
 
-# Kept in the errors below so a user can find what is still to port.
-_QUIRK_ITEM = "ROADMAP Queue 1 item 2 (stencil/quirk IB)"
+# Kept in the errors so a user can find what is still to port.
+_QUIRK_ITEM = "ROADMAP Queue 1 item 12 (the quirk IB on a mesh)"
 _BF16_ITEM = "ROADMAP Queue 1 item 2 (bf16 storage on the card)"
 
 # the reference hardcodes the flux divisor (ImmersedBoundary.cu:261)
@@ -140,9 +151,7 @@ class MucociliarySim:
             raise NotImplementedError(
                 f"bf16 state on a CUDA device: {_BF16_ITEM}")
         self.backend = backend
-        if ib_x_edge == "reference":
-            raise NotImplementedError(f"ib_x_edge='reference': {_QUIRK_ITEM}")
-        if ib_x_edge != "periodic":
+        if ib_x_edge not in ("periodic", "reference"):
             raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")
         self.ib_x_edge = ib_x_edge
         self.temporal_requested = temporal
@@ -181,7 +190,8 @@ class MucociliarySim:
             "temporal_requested": self.temporal_requested,
             "temporal_reason": self.temporal_reason,
             "forcing": self.forcing,
-            "ib_path": "band_matmul",
+            "ib_path": ("stencil_quirk" if self.ib_x_edge == "reference"
+                        else "band_matmul"),
             "mesh": None,
         }
 
@@ -196,6 +206,11 @@ class MucociliarySim:
         return self._pick(fused_substep, fused_substep_reference)(
             f, force, self.cfg, self.walls, self.forcing, self.storage,
             out=out)
+
+    def _collide_stream(self, f, force, out):
+        return self._pick(collide_stream, collide_stream_reference)(
+            f, force, self.cfg.tau, self.cfg.tau2, self.walls, self.forcing,
+            self.storage, out=out)
 
     def _band_substep(self, f_ext, force, out, f1out):
         """B3 on the extended band: flags [0, 1, 0] (bottom wall, no top
@@ -225,11 +240,25 @@ class MucociliarySim:
 
     # --- single-step path
 
-    def _fluid_ib_step(self, f, force, q, u_s, eps, anchored, out=None):
+    def _stencil_ib(self, f_new, s, u_s, eps):
+        """The quirk mode's IB force band from the stencil forms (JAX
+        mucociliary.py:341-346, 460-468)."""
+        f_s = ib.interpolate_from_f(f_new, s, u_s, self.storage, "reference")
+        return ib.spread(f_s, s, eps, self.cfg.xdim, self.cfg.force_band,
+                         "reference")
+
+    def _fluid_ib_step(self, f, force, q, u_s, eps, anchored, s, out=None):
         """Fluid + IB + flux for one step: kernel, then the delta factors
         shared by interpolate and spread, then the flux from the emitted
-        column (JAX mucociliary.py:327-367)."""
+        column (JAX mucociliary.py:327-367); in the quirk mode the step
+        without emission, the stencil IB and the flux from f_new's
+        column."""
         cfg = self.cfg
+        if self.ib_x_edge == "reference":
+            f_new = self._collide_stream(f, force, out)
+            force_new = self._stencil_ib(f_new, s, u_s, eps)
+            return f_new, force_new, q + ib.flux_increment(
+                f_new, force_new, cfg.flux_x, _FLUX_DIVISOR, self.storage)
         f_new, q_band, fluxcol = self._substep(f, force, out)
         factors = ib_band.delta_factors(anchored, cfg.xdim, cfg.force_band,
                                         self.aux_dtype)
@@ -242,24 +271,25 @@ class MucociliarySim:
     _MAX_CHUNK = 512
 
     def step_kinematics(self, it0: int, n: int):
-        """(pos, u_s, eps, anchor, frac) of steps it0 .. it0 + n - 1, each
-        with a leading [n] axis: one batched f64 evaluation."""
+        """(pos, u_s, eps, anchor, frac, s) of steps it0 .. it0 + n - 1,
+        each with a leading [n] axis: one batched f64 evaluation; s are the
+        raw placed positions the quirk mode's stencil IB takes."""
         its = torch.arange(it0, it0 + n, dtype=torch.int64,
                            device=self.device)
         pos, vel = self.cilia.kinematics(its)              # [n, c, nodes, 2]
-        _, u_s, eps = self.cilia.place_and_mask(pos, vel)
+        s, u_s, eps = self.cilia.place_and_mask(pos, vel)
         anchor, frac = self.cilia.anchored_nodes(pos)
-        return pos, u_s, eps, anchor, frac
+        return pos, u_s, eps, anchor, frac, s
 
     def _run_steps(self, state: FlowState, n: int) -> FlowState:
-        pos, u_s, eps, anchor, frac = self.step_kinematics(state.it, n)
+        pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it, n)
         f, force, q = state.f, state.force, state.q
         # two f buffers, neither of them state.f (the caller's state stays
         # valid)
         bufs = [torch.empty_like(f) for _ in range(min(n, 2))]
         for k in range(n):
             f, force, q = self._fluid_ib_step(
-                f, force, q, u_s[k], eps[k], (anchor[k], frac[k]),
+                f, force, q, u_s[k], eps[k], (anchor[k], frac[k]), s[k],
                 bufs[k % 2])
         return FlowState(f=f, force=force,
                          lasts=pos[-1].to(self.aux_dtype), q=q,
@@ -267,12 +297,14 @@ class MucociliarySim:
 
     # --- K-step temporal path
 
-    def _super_step(self, f, force, q, u_s, eps, anchor, frac):
+    def _super_step(self, f, force, q, u_s, eps, anchor, frac, s_pts):
         """K steps, per-sub-step band leg (JAX mucociliary.py:433-486): the
         extended band (band + pad ghost rows) runs K B3 calls, each followed
-        by the torch IB; then the bulk advances K steps in one B4 call.  The
-        band rows' flux takes the per-sub-step /192 of flux_from_cols; the
-        bulk's raw sum is divided once."""
+        by the torch IB (the stencil IB on the extended band in the quirk
+        mode: every stencil cell lies far below its ghost rows); then the
+        bulk advances K steps in one B4 call.  The band rows' flux takes the
+        per-sub-step /192 of flux_from_cols; the bulk's raw sum is divided
+        once."""
         cfg, K = self.cfg, self.temporal
         band, xdim = cfg.force_band, cfg.xdim
         rows = band + self.plan.pad
@@ -286,10 +318,15 @@ class MucociliarySim:
         for s in range(K):
             f_ext, _, q_band, fluxcol = self._band_substep(
                 f_ext, force, ebufs[s % 2], bhalos[s])
-            factors = ib_band.delta_factors((anchor[s], frac[s]), xdim, band,
-                                            self.aux_dtype)
-            f_s = ib_band.interpolate_from_moments(q_band, u_s[s], factors)
-            force = ib_band.spread(f_s, eps[s], factors).to(force.dtype)
+            if self.ib_x_edge == "reference":
+                force = self._stencil_ib(f_ext, s_pts[s], u_s[s],
+                                         eps[s]).to(force.dtype)
+            else:
+                factors = ib_band.delta_factors((anchor[s], frac[s]), xdim,
+                                                band, self.aux_dtype)
+                f_s = ib_band.interpolate_from_moments(q_band, u_s[s],
+                                                       factors)
+                force = ib_band.spread(f_s, eps[s], factors).to(force.dtype)
             # band rows only: the pad rows' flux comes from the bulk
             flux_band = flux_band + ib.flux_from_cols(
                 fluxcol[:, :band], force, cfg.flux_x, _FLUX_DIVISOR)
@@ -315,7 +352,7 @@ class MucociliarySim:
         mucociliary.py:488-526)."""
         K = self.temporal
         n_super = n // K
-        pos, u_s, eps, anchor, frac = self.step_kinematics(state.it, n)
+        pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it, n)
         f, force, q = state.f, state.force, state.q
         if self.plan.band_leg != "per_substep":
             xs_all = prep_band_super_points(
@@ -329,7 +366,7 @@ class MucociliarySim:
                 sl = slice(i * K, (i + 1) * K)
                 f, force, q = self._super_step(f, force, q, u_s[sl],
                                                eps[sl], anchor[sl],
-                                               frac[sl])
+                                               frac[sl], s[sl])
         return FlowState(f=f, force=force,
                          lasts=pos[-1].to(self.aux_dtype), q=q,
                          it=state.it + n)

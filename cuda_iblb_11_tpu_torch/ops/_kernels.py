@@ -45,6 +45,13 @@ SIGNATURES = {
                           + [_I] * 2 + [_D] * 2 + [_I] * 2 + [_P]),
     "iblb_ghost_temporal": ([_P, _LL] * 4 + [_P] * 5 + [_I] * 9 + [_D] * 2
                             + [_I] * 3 + [_P]),
+    "iblb_collide_stream": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_I] * 3 + [_P],
+}
+# the probes (csrc/probes.cu) take float32 only
+SIGNATURES_F32 = {
+    "iblb_probe_copy": [_P, _P, _LL, _I, _I, _I, _P],
+    "iblb_probe_ring_copy": [_P, _P, _LL, _I, _I, _P],
+    "iblb_probe_chain": [_P, _P, _LL, _I, _I, _P],
 }
 
 
@@ -56,11 +63,13 @@ class KernelLibrary:
         self.build_seconds = build_seconds   # 0.0 when reused from disk
         self.build_log = build_log
         self.lib = ctypes.CDLL(path)
-        for name, argtypes in SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
-                fn = getattr(self.lib, name + suffix)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        entries = [(n + sfx, a) for n, a in SIGNATURES.items()
+                   for sfx in ("_f32", "_f64")]
+        entries += [(n + "_f32", a) for n, a in SIGNATURES_F32.items()]
+        for name, argtypes in entries:
+            fn = getattr(self.lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         self.lib.iblb_error_string.argtypes = [ctypes.c_int]
         self.lib.iblb_error_string.restype = ctypes.c_char_p
 

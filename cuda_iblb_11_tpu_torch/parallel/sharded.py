@@ -437,7 +437,7 @@ class ShardedPallasSim:
         return f, force, q
 
     def _run_steps(self, state: MeshState, n: int) -> MeshState:
-        pos, u_s, eps, anchor, frac = self.step_kinematics(state.it, n)
+        pos, u_s, eps, anchor, frac, _ = self.step_kinematics(state.it, n)
         f, force, q = self._steps(list(state.f), list(state.force), state.q,
                                   u_s, eps, anchor, frac)
         return MeshState(f=f, force=force,

@@ -45,7 +45,7 @@ def _points(K, it0):
     sim = MucociliarySim(SimConfig(**KW), backend="torch", device="cpu",
                          temporal=K)
     assert sim.plan.band_leg == "band_super_whole"
-    _, u_s, eps, anchor, frac = sim.step_kinematics(it0, K)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(it0, K)
     return (u_s, eps, anchor, frac), sim.plan.halo
 
 

@@ -171,7 +171,7 @@ def tiled_inputs():
     sim = MucociliarySim(tcfg, backend="torch", device="cpu", temporal=K2)
     plan = sim.plan
     assert plan.band_leg == "band_super_whole"
-    _, u_s, eps, anchor, frac = sim.step_kinematics(137, K2)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(137, K2)
     xs = [x[0] for x in prep_band_super_points(
         tcfg, K2, plan.halo, torch.float64, u_s, eps, anchor, frac, 1)]
     band, xdim = tcfg.force_band, tcfg.xdim

@@ -56,7 +56,7 @@ def _inputs(kw, n_x, gx=None):
     force = torch.from_numpy(1e-4 * rng.standard_normal(
         (2, cfg.force_band, cfg.xdim)))
     sim = MucociliarySim(cfg, backend="torch", device="cpu")
-    _, u_s, eps, anchor, frac = sim.step_kinematics(137, K)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(137, K)
     xs = [x[0] for x in prep_band_super_points(
         cfg, K, lay.halo, torch.float64, u_s, eps, anchor, frac, 1)]
     return cfg, xl, lay, f, force, xs

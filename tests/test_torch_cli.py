@@ -101,14 +101,49 @@ def test_cli_temporal_k_matches_single_step(tmp_path):
     ["--mesh", "2,1", "--ib-x-edge", "reference"],   # the quirk on a mesh
     ["--checkpoint-format", "orbax"],
     ["--profile-dir", "trace"],
-    ["--temporal", "4", "--ib-x-edge", "reference"],   # the quirk K-step leg
-    ["--ib-x-edge", "reference"],
 ])
 def test_cli_unported_modes_refuse(tmp_path, flag, capsys):
     rc = main(ARGS + ["--output", str(tmp_path), "--quiet", "--device",
                       "cpu"] + flag)
     assert rc == 2
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("temporal,leg", [("1", "single_step"),
+                                          ("4", "per_substep")])
+def test_cli_quirk_mode_runs_and_names_its_path(tmp_path, temporal, leg):
+    # --ib-x-edge reference on one device: the step without emission and
+    # the stencil IB (the K-step leg per sub-step), against the JAX CLI in
+    # the same mode at the flux gate of test_cli_matches_jax_cli
+    out = tmp_path / "port"
+    assert main(ARGS + ["--output", str(out), "--quiet", "--device", "cpu",
+                        "--dtype", "float32", "--ib-x-edge", "reference",
+                        "--temporal", temporal]) == 0
+    log = (out / SIMLOG).read_text()
+    assert "IB path: stencil_quirk" in log
+    assert f"Kernel path: {leg}" in log
+    assert jax_main(ARGS + ["--output", str(tmp_path / "jax"), "--quiet",
+                            "--backend", "jnp", "--dtype", "float32",
+                            "--ib-x-edge", "reference"]) == 0
+    a = np.loadtxt(tmp_path / "jax" / FLUX)
+    b = np.loadtxt(out / FLUX)
+    digit = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(a[:, 1]),
+                                                  1e-300))) - 5)
+    assert np.all(np.abs(a[:, 1] - b[:, 1]) <= 1e-6 * np.abs(a[:, 1]) + digit)
+    assert "IB path: stencil_quirk" in (tmp_path / "jax" / SIMLOG).read_text()
+
+
+def test_cli_quirk_flux_differs_from_periodic(tmp_path):
+    # the quirk changes the cilia's x-edge coupling, so the flux moves
+    flux = {}
+    for mode in ("periodic", "reference"):
+        out = tmp_path / mode
+        assert main(ARGS + ["--output", str(out), "--quiet", "--device",
+                            "cpu", "--dtype", "float64", "--ib-x-edge",
+                            mode]) == 0
+        flux[mode] = np.loadtxt(out / FLUX)[-1, 1]
+    assert abs(flux["reference"] - flux["periodic"]) > 1e-4 * abs(
+        flux["periodic"])
 
 
 def test_cli_device_cuda_without_gpu_raises(tmp_path):

@@ -1,9 +1,10 @@
-"""Tests that need the card: the hand kernels of csrc/ (B2 and B3
+"""Tests that need the card: the hand kernels of csrc/ (B2, B3 and B2h
 fused_step.cu, B4 and B7 ghost_temporal.cu, B5, B6 and B8 band_super.cu,
-B0 collide_rows.cu) against their plain versions on the same inputs on
-the GPU, B7 with B4's flags against B4 bit for bit, and the model's cuda
-backend against its torch backend, single-step, temporal (all three band
-legs) and sharded (shards sharing the card, every leg).  They carry the
+B0 collide_rows.cu, P1-P3 probes.cu) against their plain versions on the
+same inputs on the GPU, B7 with B4's flags against B4 bit for bit, and the
+model's cuda backend against its torch backend, single-step, temporal (all
+three band legs), sharded (shards sharing the card, every leg) and in the
+quirk mode (two runs bit for bit), and the channel through B2h.  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -41,8 +42,13 @@ from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
 from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
     band_super_xsharded, band_super_xsharded_reference, shard_points,
 )
+from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
+from cuda_iblb_11_tpu_torch.ops import probes
 from cuda_iblb_11_tpu_torch.ops.collide_rows import (
     collide_rows, collide_rows_reference,
+)
+from cuda_iblb_11_tpu_torch.ops.collide_stream import (
+    collide_stream, collide_stream_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
@@ -259,7 +265,7 @@ def super_inputs(cfg, K, dtype, storage, device, it0=137, seed=4):
     # band's footprint exceeds the card's L2): both take these inputs
     assert plan.band_leg in ("band_super_whole", "band_super_xtiled")
     f, force = random_inputs(cfg, storage, dtype, device, seed)
-    _, u_s, eps, anchor, frac = sim.step_kinematics(it0, K)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(it0, K)
     xs = prep_band_super_points(cfg, K, plan.halo, dtype, u_s, eps, anchor,
                                 frac, 1)
     return (f[:, :cfg.force_band + plan.pad_s], force,
@@ -550,7 +556,7 @@ def test_b8_matches_plain_version(card, c_num, n_x, dtype):
     assert lay.phase_general == (xl % cfg.c_space != 0)
     f, force = random_inputs(cfg, storage, dtype, card, seed=11)
     sim = MucociliarySim(cfg, backend="torch", device=card, dtype=dtype)
-    _, u_s, eps, anchor, frac = sim.step_kinematics(137, K)
+    _, u_s, eps, anchor, frac, _ = sim.step_kinematics(137, K)
     xs = [x[0] for x in prep_band_super_points(
         cfg, K, lay.halo, dtype, u_s, eps, anchor, frac, 1)]
     g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
@@ -611,3 +617,226 @@ def test_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30
+
+
+# --- B2h, the quirk mode, the channel ------------------------------------
+
+B2H_GRIDS = {   # (xdim, ydim, force band or None for the whole height)
+    "width8_channel": (8, 32, None), "width16_channel": (16, 32, None),
+    "width16_band": (16, 40, 16), "ragged_150x61": (150, 61, 40),
+    "channel_288x192": (288, 192, 128), "whole_288x192": (288, 192, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(B2H_GRIDS))
+@pytest.mark.parametrize("dtype,storage,forcing,top", CASES)
+def test_b2h_matches_plain_version(card, grid, dtype, storage, forcing, top):
+    xdim, ydim, band = B2H_GRIDS[grid]
+    cfg = SimConfig(c_num=1, c_space=xdim, ydim=ydim, length=4)
+    f, _ = random_inputs(cfg, storage, dtype, card, seed=12)
+    rng = np.random.default_rng(13)
+    force = torch.from_numpy(1e-4 * rng.standard_normal(
+        (2, band or ydim, xdim))).to(card, dtype)
+    walls = ref.WallSpec(top=top)
+    args = (f, force, cfg.tau, cfg.tau2, walls, forcing, storage)
+    before = collide_stream.launches
+    got = collide_stream(*args)
+    want = collide_stream_reference(*args)
+    torch.cuda.synchronize()
+    assert collide_stream.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_l2(got, want) <= GATE[dtype]
+
+
+@pytest.mark.cuda
+def test_b2h_is_b2_without_emission(card):
+    # the same step kernel: B2h's f equals B2's bit for bit
+    cfg = SimConfig(**GRIDS["channel_288x192"])
+    for dtype, storage, forcing, top in CASES:
+        f, force = random_inputs(cfg, storage, dtype, card, seed=14)
+        walls = ref.WallSpec(top=top)
+        b2 = fused_substep(f, force, cfg, walls, forcing, storage)[0]
+        b2h = collide_stream(f, force, cfg.tau, cfg.tau2, walls, forcing,
+                             storage)
+        assert torch.equal(b2, b2h)
+
+
+@pytest.mark.cuda
+def test_b2h_wrapper_refuses_bad_inputs(card):
+    cfg = SimConfig(**GRIDS["band_below_ydim"])
+    f, force = random_inputs(cfg, "raw", torch.float32, card)
+    n = collide_stream.launches
+    tau = (cfg.tau, cfg.tau2)
+    with pytest.raises(ValueError, match="alias"):
+        collide_stream(f, force, *tau, out=f)
+    with pytest.raises(ValueError, match="band"):      # band > ydim
+        collide_stream(f, torch.zeros((2, cfg.ydim + 8, cfg.xdim),
+                                      device=card), *tau)
+    with pytest.raises(ValueError):                     # force dtype
+        collide_stream(f, force.double(), *tau)
+    with pytest.raises(ValueError, match="contiguous"):
+        collide_stream(f.transpose(1, 2).contiguous().transpose(1, 2),
+                       force, *tau)
+    with pytest.raises(NotImplementedError):
+        collide_stream(f.half(), force.half(), *tau, storage="deviatoric")
+    with pytest.raises(NotImplementedError):
+        collide_stream(f, force, *tau, ref.WallSpec(top="moving"))
+    assert collide_stream.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_quirk_cuda_matches_torch_backend(card, temporal, dtype):
+    cfg = SimConfig(c_num=6, c_space=48, dtype=dtype)
+    steps = 3 * temporal + 3
+    states = {}
+    for backend in ("cuda", "torch"):
+        sim = MucociliarySim(cfg, backend=backend, device=card,
+                             temporal=temporal, ib_x_edge="reference")
+        assert sim.resolved_config()["ib_path"] == "stencil_quirk"
+        n0 = (collide_stream.launches, sharded_fused_substep.launches,
+              temporal_bulk.launches, fused_substep.launches)
+        states[backend] = (sim, sim.run_chunk(sim.init_state(), steps))
+        n1 = (collide_stream.launches, sharded_fused_substep.launches,
+              temporal_bulk.launches, fused_substep.launches)
+        launched = tuple(b - a for a, b in zip(n0, n1))
+        if backend == "torch":
+            assert launched == (0, 0, 0, 0)
+        elif temporal == 1:
+            assert launched == (steps, 0, 0, 0)
+        else:
+            assert launched == (3, 3 * temporal, 3, 0)
+    (sc, a), (_, b) = states["cuda"], states["torch"]
+    ua, ub = sc.fields(a)[1], sc.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    gate = 1e-5 if dtype == "float32" else 1e-11
+    assert rel_l2(ua, ub) <= gate
+    assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))
+
+
+@pytest.mark.cuda
+def test_quirk_runs_are_bit_identical(card):
+    # no atomics in the spread: two runs give the same bits
+    cfg = SimConfig(c_num=6, c_space=48)
+    runs = []
+    for _ in range(2):
+        sim = MucociliarySim(cfg, device=card, temporal="auto",
+                             ib_x_edge="reference")
+        assert sim.resolved_config()["band_leg"] == "per_substep"
+        runs.append(sim.run_chunk(sim.init_state(), 2 * sim.temporal + 3))
+    assert torch.equal(runs[0].f, runs[1].f)
+    assert torch.equal(runs[0].force, runs[1].force)
+    assert torch.equal(runs[0].q, runs[1].q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdim", [8, 16])
+def test_channel_on_the_card_matches_the_cpu(card, xdim):
+    # f64 through B2h against the plain version on the CPU: f at the f64
+    # gate; the profile, a velocity of ~1e-4 taken from populations of
+    # ~0.1, carries their round-off 1e3 times larger
+    steps = 300
+    got = {}
+    for dev in (card, "cpu"):
+        ch = PoiseuilleChannel(xdim, 32, tau=0.8, device=dev)
+        before = collide_stream.launches
+        f = ch.run(ch.init_f(), steps)
+        assert collide_stream.launches - before == (
+            steps if dev == card else 0)
+        got[str(dev)] = (f.cpu(), ch.profile(f).cpu())
+    (fa, pa), (fb, pb) = got[str(card)], got["cpu"]
+    assert rel_l2(fa, fb) <= 1e-12
+    assert rel_l2(pa, pb) <= 1e-9
+
+
+# --- P1-P3 ----------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads,blocks", [(256, None), (1024, None),
+                                            (128, 264)])
+def test_p2_copy_and_scale_bit_for_bit(card, threads, blocks):
+    x = torch.rand((9, 64, 96), device=card) + 0.5
+    for scale in (False, True):
+        want = probes.probe_copy_reference(x, scale)
+        before = probes.probe_copy.launches
+        got = probes.probe_copy(x, scale, out=torch.full_like(x, torch.nan),
+                                threads=threads, blocks=blocks)
+        y = x.clone()
+        probes.probe_copy(y, scale, out=y, threads=threads, blocks=blocks)
+        torch.cuda.synchronize()
+        assert probes.probe_copy.launches == before + 2
+        assert torch.equal(got, want) and torch.equal(y, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,depth", [(1024, 2), (4096, 3), (65536, 2)])
+def test_p3_ring_copy_bit_for_bit(card, tile, depth):
+    x = torch.rand((9, 64, 256), device=card)     # 576 KiB: whole tiles
+    before = probes.probe_ring_copy.launches
+    out = torch.full_like(x, float("nan"))
+    got = probes.probe_ring_copy(x, tile, depth, out=out)
+    torch.cuda.synchronize()
+    assert probes.probe_ring_copy.launches == before + 1
+    assert torch.equal(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,depth", [(1024, 2), (1024, 3), (4096, 3),
+                                        (65536, 2), (65536, 3)])
+def test_p3_ring_wraps_over_many_tiles_per_block(card, tile, depth):
+    # 64 MiB plus one tile against the grid of resident blocks (at most 8
+    # of 256 threads per SM, fewer where the stages fill shared memory):
+    # every block copies at least 2 x depth tiles (some one more), so each
+    # stage is refilled, the mbarrier parity flips and the proxy fence runs
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    per_sm = min(8, (228 << 10) // (128 + depth * tile))
+    n = (64 << 20) // 4 + tile // 4
+    assert n * 4 // tile // (per_sm * sms) >= 2 * depth
+    g = torch.Generator(device=card).manual_seed(tile + depth)
+    x = torch.rand(n, generator=g, device=card)
+    out = torch.full_like(x, float("nan"))
+    before = probes.probe_ring_copy.launches
+    probes.probe_ring_copy(x, tile, depth, out=out)
+    torch.cuda.synchronize()
+    assert probes.probe_ring_copy.launches == before + 1
+    assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", probes.CHAIN_OPS)
+def test_p1_chain_matches_plain_version(card, op):
+    g = torch.Generator(device=card).manual_seed(3)
+    x = 0.5 + torch.rand((256, 1024), generator=g, device=card)
+    before = probes.probe_chain.launches
+    for reps in (0, 7, 450):
+        got = probes.probe_chain(x, reps, op)
+        want = probes.probe_chain_reference(x, reps, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)   # fmaf and the f64 link round once
+    assert probes.probe_chain.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_bad_inputs(card):
+    x = torch.rand((9, 64, 96), device=card)
+    n = (probes.probe_copy.launches, probes.probe_ring_copy.launches,
+         probes.probe_chain.launches)
+    flat = x.view(-1)
+    with pytest.raises(ValueError, match="alias"):     # partial overlap
+        probes.probe_copy(flat[:4096], out=flat[2048:6144])
+    with pytest.raises(ValueError, match="float32"):
+        probes.probe_copy(x.double())
+    with pytest.raises(ValueError, match="float4"):
+        probes.probe_copy(torch.rand(6, device=card))
+    with pytest.raises(ValueError, match="alias"):     # the ring reads ahead
+        probes.probe_ring_copy(x, 1024, 2, out=x)
+    with pytest.raises(ValueError, match="depth"):
+        probes.probe_ring_copy(x, 1024, 4)
+    with pytest.raises(ValueError, match="tile"):
+        probes.probe_ring_copy(x, 1000, 2)
+    with pytest.raises(ValueError, match="float32"):
+        probes.probe_chain(x.double(), 10)
+    assert (probes.probe_copy.launches, probes.probe_ring_copy.launches,
+            probes.probe_chain.launches) == n

@@ -142,11 +142,13 @@ def test_resolved_config_and_unported_modes():
     assert (rc["temporal_reason"]
             == "auto: backend 'torch' has no temporal path")
     assert rc["backend"] == "torch" and "cpu" in rc["backend_reason"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MucociliarySim(CFG64, device="cpu", temporal=4,
-                       ib_x_edge="reference")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MucociliarySim(CFG64, device="cpu", ib_x_edge="reference")
+    # the quirk mode runs on one device, single-step and K-step
+    for k, leg in ((4, "per_substep"), (1, "single_step")):
+        q = MucociliarySim(CFG64, device="cpu", temporal=k,
+                           ib_x_edge="reference").resolved_config()
+        assert (q["ib_path"], q["band_leg"]) == ("stencil_quirk", leg)
+    with pytest.raises(ValueError):
+        MucociliarySim(CFG64, device="cpu", ib_x_edge="wrap")
     with pytest.raises(ValueError):
         MucociliarySim(CFG64, device="cpu", backend="cuda")
 

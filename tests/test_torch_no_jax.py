@@ -1,6 +1,8 @@
 """The torch port imports no JAX: a static scan of its sources (the sharded
-slice's modules among them), and a fresh interpreter that imports it and
-runs two steps on the CPU, then three on a (2, 2) mesh."""
+slice's modules and the probes, the validation models and the quirk IB of
+the last slice among them), and a fresh interpreter that imports it and
+runs two steps on the CPU, three on a (2, 2) mesh, and two of each
+validation model and of the quirk mode."""
 
 import ast
 import os
@@ -50,10 +52,12 @@ def test_port_sources_import_no_jax():
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad
     assert len(_port_sources()) > 10
-    # the sharded slice's modules are scanned too
+    # the sharded slice's modules and the last slice's are scanned too
     names = {os.path.relpath(p, PORT) for p in _port_sources()}
     assert {"parallel/sharded.py", "ops/collide_rows.py",
-            "ops/ghost_temporal.py", "ops/band_super_xsharded.py"} <= names
+            "ops/ghost_temporal.py", "ops/band_super_xsharded.py",
+            "ops/collide_stream.py", "ops/probes.py", "models/channel.py",
+            "models/cavity.py", "probe_bw.py", "probe_vpu.py"} <= names
 
 
 _CHILD = r"""
@@ -72,6 +76,16 @@ cfg = SimConfig(c_num=3, c_space=128, ydim=288, length=16)
 sim = ShardedTemporalSim(cfg, make_mesh(2, 2, devices=["cpu"]), temporal=2)
 st = sim.run_chunk(sim.init_state(), 3)
 assert st.it == 3
+from cuda_iblb_11_tpu_torch import probe_bw, probe_vpu
+from cuda_iblb_11_tpu_torch.models.cavity import LidDrivenCavity
+from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
+ch = PoiseuilleChannel(8, 16, device="cpu")
+ch.run(ch.init_f(), 2)
+cav = LidDrivenCavity(16, device="cpu")
+cav.run(cav.init_f(), 2)
+sim = MucociliarySim(SimConfig(c_num=4, c_space=48, length=16, ydim=48),
+                     device="cpu", ib_x_edge="reference")
+assert sim.run_chunk(sim.init_state(), 2).it == 2
 print("JAX-LOADED" if "jax" in sys.modules else "NO-JAX")
 """
 

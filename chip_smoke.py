@@ -25,7 +25,10 @@ Phases; any failure exits non-zero before the final line:
           per-sub-step leg's band block of x-column 1 (band + pad_b rows,
           4,096 columns, row band-1 exposed) and the 288 x 192 (2, 1) top
           shard's per-step block;
-       B4 K = 16 bulk steps at all three (f and flux: the same gates);
+       B4 K = 16 bulk steps at all three (f and flux: the same gates),
+          and at 8192 x 8192 in f64 raw too; at 2048 x 2048 its f against
+          16 launches of B3 (flags [band, 0, 1], the seam halo as the
+          bottom halo row), bit for bit;
        B5 K = 16 band super-step at 2048 x 2048 (16 cilia) and 8192 x 8192
           (64 cilia), real points (f_band and seam halos as above; force
           and flux <= 1e-5 f32, 1e-11 f64), on a plan without the L2
@@ -47,9 +50,11 @@ Phases; any failure exits non-zero before the final line:
           points (B5's gates);
      then each kernel's time at 2048 x 2048 f32 beside its plain version
      (CUDA events after a spin kernel, plain/kernel/kernel/plain), its
-     bytes and its bound; B5, B6, B7 and B0 (the seam column) also at
-     8192 x 8192 f32, B5 and B6 at 2048 x 2048 f64, both against B5's
-     bound there (the same function);
+     bytes and its bound; B4, B5, B6, B7 and B0 (the seam column) also at
+     8192 x 8192 f32, B4, B5, B6 and B7 at 2048 x 2048 f64 (B5 and B6
+     both against B5's bound there, the same function), B4 at 8192 x 8192
+     f64; for B4 and B7 the K-step driver's HBM passes per call, its
+     redundancy and the arithmetic bound with it;
   3. the main path: the port's CLI ``1 6 48 1.0 1.0 5 0.02 4 0 0 --device
      cuda``, 2,000 f32 steps, twice: with --temporal 1 (one B2 launch per
      step) and with the default --temporal auto (K = 16, per-sub-step leg:
@@ -82,7 +87,8 @@ Phases; any failure exits non-zero before the final line:
      within 1e-5 of the torch run's and of the other's, the two auto runs'
      Flux files equal byte for byte, SimLog naming stencil_quirk; then
      2048 x 2048 (16 cilia) 512 steps cuda against torch backend, velocity
-     rel-L2 <= 1e-5, ms/step and MLUPS;
+     rel-L2 <= 1e-5, ms/step and MLUPS, and the same in f64 over 64 steps,
+     velocity rel-L2 <= 1e-12;
   7. the validation models: the Poiseuille channel 16 x 32 (8,000 steps,
      f64 raw and f32 deviatoric, every step a B2h launch) within 3e-3 of
      its analytic profile; a 2048 x 2048 channel, 512 steps: B2h against
@@ -110,6 +116,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -152,6 +159,7 @@ from cuda_iblb_11_tpu_torch.probe_vpu import (  # noqa: E402
 )
 
 PROBES = ("P1 probe_chain", "P2 probe_copy", "P3 probe_ring_copy")
+KSTEP = ("B4 temporal_bulk", "B7 ghost_temporal")   # the K-step driver
 
 CASES = [("float32", "deviatoric", "slip"), ("float32", "deviatoric",
                                                "noslip"),
@@ -367,7 +375,7 @@ def case_b4(cfg, plan, f, walls, storage):
     out = f.new_empty(f.shape)[:, band:]
     rows = y - band
     es = f.element_size()
-    return KernelCase(
+    kc = KernelCase(
         lambda: temporal_bulk(f_bulk, bhalos, cfg, walls, "trt_split",
                               storage, out=out),
         lambda: temporal_bulk_reference(f_bulk, bhalos, cfg, walls,
@@ -375,6 +383,9 @@ def case_b4(cfg, plan, f, walls, storage):
         ("f", "flux"),
         es * (18 * rows * x + 9 * K * x + K),
         K * (COLLIDE_FREE * rows * x + MOMENTS * rows))
+    kc.inputs = (f_bulk, bhalos, walls, storage)
+    kc.block = (rows, 0, x, K, f.dtype)   # (yl, pad, width, K, dtype)
+    return kc
 
 
 def super_points(cfg, plan, dtype):
@@ -555,12 +566,14 @@ def case_b7(cfg, f, walls, storage, iy, ix, K):
         return (res[0][own], res[1]) if owned else (res[0][own],)
 
     cells = blk.shape[1] * width
-    return KernelCase(
+    kc = KernelCase(
         lambda: pick(ghost_temporal(*args, out=out)),
         lambda: pick(ghost_temporal_reference(*args)),
         ("f", "flux")[:1 + owned],
         f.element_size() * (18 * cells + 9 * K * width + K),
         K * (COLLIDE_FREE * cells + MOMENTS * (yl - lb)))
+    kc.block = (yl, pad, width, K, f.dtype)
+    return kc
 
 
 def case_b8(cfg, f, force, walls, storage, ix, K, dtype):
@@ -624,6 +637,7 @@ def phase_kernels(record):
     timed_big = {}   # B5 and B6 on the big grid's path case
     timed_f64 = {}   # and at the timing grid in f64, where auto takes B6
     b6_vs_b5 = []
+    b4_vs_b3 = []
 
     def run(kname, gname, dt, storage, top, kc, gates, extra=""):
         got = kc.kern()
@@ -647,6 +661,8 @@ def phase_kernels(record):
         worst[kname] = max(worst.get(kname, 0.0), err)
         if gname == TIMING_GRID and dt == "float32":
             timed.setdefault(kname, kc)
+        if gname == TIMING_GRID and dt == "float64" and kname in KSTEP:
+            timed_f64.setdefault(kname, kc)
 
     for gname, (cfg, cases) in grids.items():
         for k, (dt, storage, top) in enumerate(cases):
@@ -703,8 +719,14 @@ def phase_kernels(record):
                     case_b0(cfg, f, force, storage, (2, 1),
                             cfg.ydim // 2, "row"), g,
                     "(2, 1) shard edge row")
-            run("B4 temporal_bulk", gname, dt, storage, top,
-                case_b4(cfg, plan, f, walls, storage), g, f"K={plan.K}")
+            b4 = case_b4(cfg, plan, f, walls, storage)
+            run("B4 temporal_bulk", gname, dt, storage, top, b4, g,
+                f"K={plan.K}")
+            if gname == TIMING_GRID:
+                b4_vs_b3.append(b4_is_b3_composed(cfg, b4, gname, dt, top))
+            if gname == big_name:
+                timed_big["B4 temporal_bulk"] = b4
+            del b4
             if plan.pad_s is not None:   # a band super-step leg
                 # B5 on a plan without the L2 budget wherever auto takes
                 # B6: the kernel checks do not depend on the plan's leg
@@ -742,9 +764,9 @@ def phase_kernels(record):
                 if gname == big_name:
                     timed_big.update({"B5 band_super": b5,
                                       "B6 band_super_tiled": b6})
-                elif gname == TIMING_GRID and not timed_f64:
-                    timed_f64 = {"B5 band_super": b5,
-                                 "B6 band_super_tiled": b6}
+                elif gname == TIMING_GRID and "B5 band_super" not in timed_f64:
+                    timed_f64.update({"B5 band_super": b5,
+                                      "B6 band_super_tiled": b6})
                 del b6, got6, got5
             if plan.pad_s is not None:
                 del b5, xs
@@ -774,11 +796,15 @@ def phase_kernels(record):
             torch.cuda.empty_cache()
     check(set(worst) == set(KERNELS) - set(PROBES),
           f"kernels held: {sorted(worst)}")
-    check(len(timed_big) == 4 and len(timed_f64) == 2,
-          "B5, B6, B7 and B0 were not held at 8192^2 f32, B5 and B6 at "
-          "2048^2 f64")
+    check(len(timed_big) == 5 and len(timed_f64) == 4,
+          "B4, B5, B6, B7 and B0 were not held at 8192^2 f32, B4, B5, B6 "
+          "and B7 at 2048^2 f64")
+    check(len(b4_vs_b3) == len(CASES) and all(
+        r["bit_identical"] for r in b4_vs_b3),
+        f"B4 against K launches of B3: {b4_vs_b3}")
     record["kernel_vs_plain"] = results
     record["b6_vs_b5"] = b6_vs_b5
+    record["b4_vs_k_launches_of_b3"] = b4_vs_b3
 
     # times at 2048 x 2048, f32 deviatoric, slip (the first case's inputs;
     # B3 with the band leg's flags [0, 1, 0]); B5 and B6 also at the big
@@ -796,14 +822,84 @@ def phase_kernels(record):
     timings_f64 = {kname: time_case(kname, kc, f"{TIMING_GRID} f64 raw", 10,
                                     1, worst, F64_FLOP_S)
                    for kname, kc in timed_f64.items()}
+    timed_big.clear()
+    torch.cuda.empty_cache()
+    # B4 at 8192^2 in f64, its path's case in f64 raw slip, alone on the
+    # card (its plain version holds about 30 GB)
+    cfg = grids[big_name][0]
+    f, _ = random_inputs(cfg, "raw", torch.float64, dev, seed=0)
+    b4_big_f64 = case_b4(cfg, types.SimpleNamespace(K=K), f,
+                         ref.WallSpec(top="slip"), "raw")
+    run("B4 temporal_bulk", big_name, "float64", "raw", "slip", b4_big_f64,
+        {"*": GATE["float64"]}, f"K={K}")
+    timing_b4_big_f64 = time_case("B4 temporal_bulk", b4_big_f64,
+                                  f"{big_name} f64 raw", 3, 1, worst,
+                                  F64_FLOP_S)
+    del f, b4_big_f64
+    torch.cuda.empty_cache()
     record["kernel_timing"] = timings
     record["kernel_timing_8192"] = timings_big
     record["kernel_timing_2048_f64"] = timings_f64
+    record["kernel_timing_8192_f64"] = {"B4 temporal_bulk": timing_b4_big_f64}
     # each kernel's time at the shapes of its main path: B6's is 8192^2,
     # B0's the 8192^2 (2, 2) mesh's seam column
     for kname in ("B6 band_super_tiled", "B0 collide_rows"):
         timings[kname] = timings_big[kname]
     return timings
+
+
+def b4_is_b3_composed(cfg, kc, gname, dt, top):
+    """B4's f on its case's inputs against K launches of B3 with flags
+    (band, 0, 1) and the seam halo as the bottom halo row: the arithmetic
+    of the first K-step driver, bit for bit."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.fused_step import sharded_fused_substep
+
+    f_bulk, bhalos, walls, storage = kc.inputs
+    cur = f_bulk
+    for s in range(bhalos.shape[0]):
+        cur = sharded_fused_substep((cfg.force_band, 0, 1), cur, None,
+                                    bhalos[s], None, cfg, walls, "trt_split",
+                                    storage)[0]
+    got = kc.kern()[0]
+    torch.cuda.synchronize()
+    same = torch.equal(got, cur)
+    err = float((got.double() - cur.double()).abs().max())
+    print(f"  B4 vs {bhalos.shape[0]} launches of B3 {gname} {dt} top={top}: "
+          f"bit-identical {same}, max|d| {err:.3e}", flush=True)
+    return dict(grid=gname, dtype=dt, top=top, bit_identical=same,
+                max_abs=err)
+
+
+def kstep_line(kname, kc, shape):
+    """The K-step driver's passes through device memory for a timed B4 or
+    B7 case, its redundancy (cells collided over cells kept) and the
+    arithmetic bound with the redundant work."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
+        _sm_count, kstep_geometry,
+    )
+
+    yl, pad, width, K, dtype = kc.block
+    geo = kstep_geometry(yl, pad, width, K, dtype,
+                         _sm_count(torch.device(DEVICE)))
+    p = geo.passes[0]
+    flop_s = F32_FLOP_S if dtype == torch.float32 else F64_FLOP_S
+    row = dict(hbm_passes_per_call=geo.hbm_passes,
+               redundancy=geo.redundancy, depth=[q.kp for q in geo.passes],
+               wc=p.wc, wt=p.wt, ly=p.ly, threads=p.threads,
+               smem_bytes=p.smem_bytes, blocks=p.n_strips * p.n_seg,
+               bound_with_redundancy_ms=kc.nflop * geo.redundancy / flop_s
+               * 1e3)
+    print(f"  {kname} {shape}: {geo.hbm_passes} HBM passes per call "
+          f"(depths {row['depth']}), strips of {p.wt} of {p.wc} columns, "
+          f"segments of {p.ly} rows, {row['blocks']} CUDA blocks of "
+          f"{p.threads} threads and {p.smem_bytes} B of shared memory; "
+          f"redundancy {geo.redundancy:.4f}, arithmetic bound with it "
+          f"{row['bound_with_redundancy_ms']:.4f} ms", flush=True)
+    return row
 
 
 def time_case(kname, kc, shape, reps, plain_reps, worst, flop_s=F32_FLOP_S):
@@ -831,6 +927,8 @@ def time_case(kname, kc, shape, reps, plain_reps, worst, flop_s=F32_FLOP_S):
     copies = getattr(kc, "copy_bytes", None)
     if copies is not None:
         row["tile_copy_bytes_per_call"] = copies
+    if kname in KSTEP:
+        row.update(kstep_line(kname, kc, shape))
     print(f"  {kname} {shape}: kernel {ms:.4f} ms "
           f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms "
           f"({t[0]:.4f}, {t[3]:.4f}); {kc.nbytes / 1e6:.1f} MB, "
@@ -1245,6 +1343,20 @@ def phase_quirk(record):
           flush=True)
     rows.append(dict(grid=name, velocity_rel_l2_cuda_vs_torch=err))
     check(err <= 1e-5, f"quirk {name}: cuda vs torch velocity rel-L2 {err}")
+    # the f64 witness: the same run in f64, 64 steps, where round-off
+    # alone leaves the two backends about 1e-15 apart
+    cfg = SimConfig(c_num=c, c_space=sp, ydim=y, dtype="float64")
+    for b in ("cuda", "torch"):
+        sim = MucociliarySim(cfg, backend=b, device=DEVICE, temporal=1,
+                             ib_x_edge="reference")
+        us[b] = sim.fields(sim.run_chunk(sim.init_state(), 64))[1]
+    err64 = rel_l2(us["cuda"], us["torch"])
+    print(f"  quirk {name} f64, 64 steps: velocity rel-L2 cuda vs torch "
+          f"{err64:.3e}", flush=True)
+    rows.append(dict(grid=name, dtype="float64", steps=64,
+                     velocity_rel_l2_cuda_vs_torch=err64))
+    check(bool(torch.isfinite(us["cuda"]).all()) and err64 <= 1e-12,
+          f"quirk {name} f64: cuda vs torch velocity rel-L2 {err64}")
     record["quirk_real_size"] = rows
     return runs["quirk_temporal_1"][0]
 

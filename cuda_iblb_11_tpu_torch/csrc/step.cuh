@@ -1,6 +1,8 @@
 // The collide + pull-stream step over a block of rows, shared by B2/B3
-// and B2h (fused_step.cu), B4 and B7 (ghost_temporal.cu) and the first
-// stage of each B5/B6/B8 sub-step (band_super.cu).
+// and B2h (fused_step.cu) and the first stage of each B5/B6/B8 sub-step
+// (band_super.cu).  B4 and B7 (ghost_temporal.cu) repeat its pulls, seam
+// and top wall operation for operation in their temporally blocked
+// kernel, and use its flux sum (column_sum_kernel).
 //
 // Replaces the body of cuda_iblb_11_tpu/ops/pallas_step.py:_pipelined_kernel
 // (:181), both as make_fused_substep builds it (B2: the whole domain) and

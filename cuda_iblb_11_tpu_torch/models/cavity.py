@@ -19,6 +19,7 @@ import torch
 from cuda_iblb_11_tpu_torch.core.lattice import RHO_0, W
 from cuda_iblb_11_tpu_torch.models.mucociliary import resolve_device
 from cuda_iblb_11_tpu_torch.ops import reference as ref
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 
 
 class LidDrivenCavity:
@@ -42,6 +43,7 @@ class LidDrivenCavity:
         w = torch.tensor(W, dtype=self.dtype, device=self.device)
         return (RHO_0 * w)[:, None, None].expand(9, self.n, self.n).clone()
 
+    @full_f32()   # one pin for the run, not one per step
     def run(self, f, n_steps):
         for _ in range(n_steps):
             f, _, _ = ref.lb_substep(f, self.force, self.tau, self.tau2,

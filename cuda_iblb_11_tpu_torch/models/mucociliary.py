@@ -58,6 +58,7 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
     fused_substep, fused_substep_reference, sharded_fused_substep,
     sharded_fused_substep_reference,
 )
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 from cuda_iblb_11_tpu_torch.ops.temporal import (
     l2_budget, plan_auto, plan_temporal,
 )
@@ -371,6 +372,7 @@ class MucociliarySim:
                          lasts=pos[-1].to(self.aux_dtype), q=q,
                          it=state.it + n)
 
+    @full_f32()   # one pin per chunk around every step's contractions
     def run_chunk(self, state: FlowState, n_steps: int) -> FlowState:
         """n_steps iterations; the input state is not modified.  With
         K > 1 each chunk of <= 512 steps runs its largest multiple of K as

@@ -44,7 +44,7 @@ SIGNATURES = {
     "iblb_collide_rows": ([_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P]
                           + [_I] * 2 + [_D] * 2 + [_I] * 2 + [_P]),
     "iblb_ghost_temporal": ([_P, _LL] * 4 + [_P] * 5 + [_I] * 9 + [_D] * 2
-                            + [_I] * 3 + [_P]),
+                            + [_I] * 4 + [_P] * 2),
     "iblb_collide_stream": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_I] * 3 + [_P],
 }
 # the probes (csrc/probes.cu) take float32 only

@@ -33,10 +33,12 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
     BOTTOM_PAIRS, _emit, _into, stream_block,
 )
 from cuda_iblb_11_tpu_torch.ops.ib import delta_1d
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 
 NPT = 128   # points per cilium block
 
 
+@full_f32()
 def band_super_block(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
                      walls=ref.REFERENCE_WALLS, forcing="trt_split",
                      storage="raw", win_lo0=None, flux_x=None, wwin=None):

@@ -23,10 +23,16 @@ sub-step, and the rows below the seam are the band leg's.
 ``ghost_temporal`` launches csrc/ghost_temporal.cu for CUDA tensors (or
 raises) and calls ``ghost_temporal_reference`` for CPU tensors.  B4
 (ops/temporal_bulk.py) launches the same driver through
-``launch_k_steps``, with no ghost rows.
+``launch_k_steps``, with no ghost rows.  ``kstep_geometry`` cuts a call
+into the kernel's passes, strips and segments; the wrapper and the tests
+call it.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -39,6 +45,153 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
 from cuda_iblb_11_tpu_torch.ops.temporal import check_ghost
 
 SEAM_DIRS = (2, 5, 6)   # the up-going populations the seam row pulls
+
+# The K-step kernel's limits (csrc/ghost_temporal.cu): levels per pass
+# (both types), threads per CUDA block (its __launch_bounds__), rows per
+# level's ring, level 0's input rows in flight; an H100's shared memory per
+# CUDA block and per SM, threads per SM.
+KB = 8
+MAX_THREADS = {torch.float32: 1024, torch.float64: 768}
+RING = 4
+STAGES = 4
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+THREADS_SM = 2048
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class KStepPass:
+    """One launch: kp levels over x-strips of wc loaded columns (wt = wc -
+    2 kp kept) and y-segments of ly rows, one CUDA block each."""
+
+    kp: int
+    wc: int
+    ly: int
+    threads: int
+    smem_bytes: int
+    n_strips: int
+    n_seg: int
+
+    @property
+    def wt(self) -> int:
+        return self.wc - 2 * self.kp
+
+    @property
+    def collides_per_row(self) -> int:
+        """Cells a CUDA block collides per row iteration: level 0's wc and
+        wc - 2s for each level s in 1..kp-1."""
+        return self.kp * self.wc - self.kp * (self.kp - 1)
+
+    def strips(self, width: int) -> list[tuple[int, int]]:
+        """The output columns [x0, x1) of each strip, as the kernel cuts
+        them."""
+        return [(i * self.wt, min((i + 1) * self.wt, width))
+                for i in range(self.n_strips)]
+
+    def segments(self, rows: int) -> list[tuple[int, int]]:
+        """The output rows [y0, y1) of each segment."""
+        return [(i * self.ly, min((i + 1) * self.ly, rows))
+                for i in range(self.n_seg)]
+
+
+@dataclass(frozen=True)
+class KStepGeometry:
+    """A K-step call on a block of rows x width: its passes, each one trip
+    of the block through device memory, and the redundancy (the cells the
+    CUDA blocks collide, ghost columns and wavefront fill included, over
+    the K x rows x width the function needs)."""
+
+    rows: int
+    width: int
+    K: int
+    passes: tuple[KStepPass, ...]
+    redundancy: float
+
+    @property
+    def hbm_passes(self) -> int:
+        return len(self.passes)
+
+    def geo_array(self):
+        """The passes as the C entry takes them: (kp, Wc, Ly, threads)."""
+        flat = [v for p in self.passes
+                for v in (p.kp, p.wc, p.ly, p.threads)]
+        return (ctypes.c_int * len(flat))(*flat)
+
+
+def _warps32(n):
+    return -(-n // 32) * 32
+
+
+def _threads(kp, wc):
+    """The kernel's threads, each group from a warp boundary: levels
+    1..kp-1 (wc - 2s columns each), level 0's wc loaders, the last
+    level's wc - 2 kp output columns."""
+    return (_warps32((kp - 1) * wc - kp * (kp - 1)) + _warps32(wc)
+            + _warps32(wc - 2 * kp))
+
+
+def _pass_geometry(rows, width, kp, dtype, n_sm):
+    es = torch.empty((), dtype=dtype).element_size()
+    wc = min(SMEM_BLOCK // ((RING * kp + STAGES) * 9 * es), width + 2 * kp)
+    while wc > 2 * kp and _threads(kp, wc) > MAX_THREADS[dtype]:
+        wc -= 1
+    if wc <= 2 * kp:
+        raise ValueError(f"K-step pass of depth {kp} does not fit a CUDA "
+                         f"block in {dtype}")
+    threads = _threads(kp, wc)
+    smem = (RING * kp + STAGES) * 9 * wc * es
+    n_strips = -(-width // (wc - 2 * kp))
+    per_sm = max(1, min(THREADS_SM // threads, SMEM_SM // (smem + 1024)))
+    best = None
+    for n in range(1, rows + 1):   # the fewest row iterations per SM
+        ly = -(-rows // n)
+        if n > 1 and ly == -(-rows // (n - 1)):
+            continue
+        n_seg = -(-rows // ly)
+        waves = -(-(n_strips * n_seg) // (n_sm * per_sm))
+        cost = waves * (ly + 3 * kp)
+        if best is None or cost < best[0]:
+            best = (cost, ly, n_seg)
+    _, ly, n_seg = best
+    return KStepPass(kp, wc, ly, threads, smem, n_strips, n_seg)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(yl, pad, width, K, dtype, n_sm):
+    rows = yl + 2 * pad
+    n_pass = -(-K // KB)
+    depths = [K // n_pass + (i < K % n_pass) for i in range(n_pass)]
+    passes = tuple(_pass_geometry(rows, width, kp, dtype, n_sm)
+                   for kp in depths)
+    run = 0
+    for p in passes:
+        for y0, y1 in p.segments(rows):
+            run += p.n_strips * (y1 - y0 + 3 * p.kp) * p.collides_per_row
+    return KStepGeometry(rows, width, K, passes, run / (K * rows * width))
+
+
+def kstep_geometry(yl, pad, width, K, dtype, n_sm=H100_SMS):
+    """The passes of a K-step call on a block of yl rows with pad ghost
+    rows a side (B4: pad = 0; B7 refuses K > pad and yl < pad) and width
+    columns, in float32 or float64, on a card of n_sm SMs: ceil(K / KB)
+    passes of near-equal depth, each as wide as the kernel's threads and
+    shared memory allow, its rows cut into segments that fill the SMs in
+    the fewest row iterations."""
+    if pad:
+        check_ghost(K, yl, pad)
+    if K < 1 or yl < 1 or width < 1:
+        raise ValueError(f"K-step block needs K, yl, width >= 1, got {K}, "
+                         f"{yl}, {width}")
+    if dtype not in MAX_THREADS:
+        raise NotImplementedError(f"K-step kernel takes float32/float64, "
+                                  f"got {dtype}")
+    return _geometry(yl, pad, width, K, dtype, n_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ghost_temporal_reference(flags, f_loc, bot, top, bhalos, cfg,
@@ -102,17 +255,19 @@ def launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
     for name, t in ghosts:
         _kernels.check_planes(name, t, (9, pad, width), dt, dev)
     _kernels.check_tensor("bhalos", bhalos, (K, 9, width), dt, dev)
+    geo = kstep_geometry(yl, pad, width, K, dt, _sm_count(dev))
     if out is None:
         out = torch.empty((9, rows, width), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, rows, width), dt, dev)
     for name, t in (("f_loc", f_loc),) + ghosts:
         _kernels.check_disjoint("out", out, name, t)
     tmp = [torch.empty((9, rows, width), dtype=dt, device=dev)
-           if K > 1 + i else None for i in range(2)]
+           if geo.hbm_passes > 1 + i else None for i in range(2)]
     colbuf = (torch.empty((K, 2, rows), dtype=dt, device=dev) if owned
               else None)
     flux = (torch.empty if owned else torch.zeros)((K,), dtype=dt,
                                                    device=dev)
+    geo_arr = geo.geo_array()
     _kernels.launch(
         "iblb_ghost_temporal", dt, dev, _kernels.ptr(bot),
         bot.stride(0) if pad else 0, f_loc.data_ptr(), f_loc.stride(0),
@@ -122,7 +277,8 @@ def launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
         flux.data_ptr() if owned else None, yl, pad, width, K, inject,
         is_top, seam_row, lane if owned else -1, owned, float(cfg.tau),
         float(cfg.tau2), int(forcing == "trt_split"),
-        int(storage == "deviatoric"), int(walls.top == "noslip"))
+        int(storage == "deviatoric"), int(walls.top == "noslip"),
+        geo.hbm_passes, ctypes.addressof(geo_arr))
     return out, flux
 
 
@@ -137,8 +293,6 @@ def ghost_temporal(flags, f_loc, bot, top, bhalos, cfg,
     if f_loc.device.type != "cuda":
         raise ValueError(f"ghost_temporal: unsupported device "
                          f"{f_loc.device}")
-    if bhalos.dim() == 3:
-        check_ghost(bhalos.shape[0], f_loc.shape[1], bot.shape[1])
     res = launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
                          storage, out, "ghost_temporal")
     ghost_temporal.launches += 1

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from cuda_iblb_11_tpu_torch.core.lattice import C
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 
 # Reference coefficient literals (ImmersedBoundary.cu:36,43).
 _A_INNER = 0.33333
@@ -104,6 +105,7 @@ def interpolate(rho, u, s, u_s, x_edge="periodic"):
     return _finish(w, rho[yc, xw], u[:, yc, xw], u_s)
 
 
+@full_f32()
 def interpolate_from_f(f, s, u_s, storage="raw", x_edge="periodic"):
     """:func:`interpolate` with the moments taken from the distributions at
     the Ns x 9 stencil cells only (the reference's separate macro pass,
@@ -148,6 +150,7 @@ def stencil_factors(s, xdim, ydim, x_edge="periodic"):
             axis(s[:, 0], xdim, x_edge == "periodic"))
 
 
+@full_f32()
 def spread(F_s, s, eps, xdim, ydim, x_edge="periodic"):
     """Eulerian IB force field [2, ydim, X] from the points' forces F_s
     [Ns, 2], positions s and overlap mask eps [Ns]
@@ -167,6 +170,7 @@ def _pad_rows(col, ydim):
     return col
 
 
+@full_f32()
 def flux_increment(f_new, force_new, flux_x, ydim_divisor=192.0,
                    storage="raw"):
     """Per-step flux sample sum_y u_x(x=flux_x, y) / 192 with the

@@ -10,8 +10,9 @@ band, so with dense per-axis factors DY [Ns, BAND], DX [Ns, X]
 The contractions are torch matmuls, as the JAX package left them to XLA.
 They must run in full f32: TF32 keeps ~3 decimal digits, and a reduced-
 precision pass of exactly these contractions put 1e-3 relative noise into
-the IB force on the TPU (docs/DESIGN.md:259-295).  The two switches are set
-at import and a test asserts them.
+the IB force on the TPU (docs/DESIGN.md:259-295).  Each function that
+contracts runs under ops/precision.full_f32, which pins full f32 and restores the
+caller's settings on exit; importing this module changes no setting.
 """
 
 from __future__ import annotations
@@ -20,10 +21,7 @@ import torch
 
 from cuda_iblb_11_tpu_torch.core.lattice import C
 from cuda_iblb_11_tpu_torch.ops.ib import delta_1d
-
-# Full-f32 matmuls on the card (the GPU form of the JAX _PREC = HIGH).
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 
 DEFAULT_BAND = 128
 
@@ -64,6 +62,7 @@ def delta_factors(anchored, xdim, band, dtype):
                                    dtype)
 
 
+@full_f32()
 def band_moments(f, band, storage="raw"):
     """(rho, mom [2, band, X]) of the first `band` rows, in >= f32."""
     fb = f[:, :band, :].to(torch.promote_types(f.dtype, torch.float32))
@@ -80,6 +79,7 @@ def finish_interpolate(i_q, u_s):
     return (2.0 * (u_s.to(i_q.dtype).T * i_q[0][None] - i_q[1:])).T
 
 
+@full_f32()
 def interpolate_from_moments(q, u_s, factors):
     """Direct-forcing IB force F_s [Ns, 2] (ImmersedBoundary.cu:94-133) from
     band moments q [3, band, X] = (rho, mom_x, mom_y).  The long x axis is
@@ -96,6 +96,7 @@ def interpolate(f, u_s, factors, band=DEFAULT_BAND, storage="raw"):
     return interpolate_from_moments(torch.cat([rho[None], mom]), u_s, factors)
 
 
+@full_f32()
 def spread(f_s, eps, factors):
     """Eulerian band force field [2, band, X] (ImmersedBoundary.cu:178-231
     recast as one [2, band, Ns] @ [Ns, X] matmul; rows above the band are
@@ -106,6 +107,7 @@ def spread(f_s, eps, factors):
     return torch.matmul(a, dx.to(f_s.dtype))                 # [2, band, X]
 
 
+@full_f32()
 def interpolate_partial(f_loc, xdim, band, y0, x0, n_rows, storage="raw",
                         anchored=None):
     """A shard's share [3, Ns] of the (rho, mom_x, mom_y) delta integrals:

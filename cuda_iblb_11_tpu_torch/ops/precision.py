@@ -1,0 +1,73 @@
+"""Full-f32 contractions whatever the caller set: ``full_f32``.
+
+The port's f32 contractions (the IB band matmuls of ops/ib_band.py, the
+stencil spread and flux of ops/ib.py, B5's plain version, the sharded flux
+column, and the plain collide's einsums in ops/reference.py, which are the
+torch backend's step and every kernel's plain version) run under it.  TF32
+keeps about three decimal digits, and a reduced-precision pass of the IB
+contractions put 1e-3 relative noise into the force on the TPU
+(docs/DESIGN.md:259-295); in the plain collide it would loosen the
+yardstick the kernels are held to.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+def _pin():
+    """Set full f32 with both of torch's switch kinds; what was set."""
+    b = torch.backends
+    new = [(m, m.fp32_precision) for m in (b.cuda.matmul, b.cudnn,
+                                            b.mkldnn.matmul)]
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        legacy = None
+    try:
+        cudnn = b.cudnn.allow_tf32
+    except RuntimeError:
+        cudnn = None
+    torch.set_float32_matmul_precision("highest")
+    b.cudnn.allow_tf32 = False
+    return new, legacy, cudnn
+
+
+def _restore(saved):
+    new, legacy, cudnn = saved
+    if legacy is not None:
+        torch.set_float32_matmul_precision(legacy)
+    if cudnn is not None:
+        torch.backends.cudnn.allow_tf32 = cudnn
+    for m, value in new:
+        m.fp32_precision = value
+
+
+class full_f32(contextlib.ContextDecorator):
+    """Full-f32 matmuls inside (no TF32, no bf16 passes), whatever the
+    caller set; the caller's settings come back on exit.  Sets torch's
+    legacy switches (float32_matmul_precision, cudnn.allow_tf32) so that
+    they and the per-backend fp32_precision agree where torch checks them,
+    and restores both kinds; a caller's legacy setting that torch itself
+    cannot read (the two kinds mixed) is left "highest".  Nested uses pin
+    once: the outermost sets and restores, the inner ones cost a counter
+    (the simulations pin once per chunk, around every step's calls).  The
+    switches are process-wide, as torch's are."""
+
+    _depth = 0
+    _saved = None
+
+    def __enter__(self):
+        if full_f32._depth == 0:
+            full_f32._saved = _pin()
+        full_f32._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        full_f32._depth -= 1
+        if full_f32._depth == 0:
+            saved, full_f32._saved = full_f32._saved, None
+            _restore(saved)
+        return False

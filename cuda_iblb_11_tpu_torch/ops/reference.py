@@ -10,6 +10,8 @@ wall rows overwritten after the roll (corner precedence, :199-365).
 
 Raw storage holds f_i; deviatoric storage holds f_i - w_i (rho = 1 + sum f).
 Any float dtype; the tests hold it to the JAX oracle at f64 round-off.
+The functions that contract (einsum) run under ops/precision.full_f32, so
+a caller's TF32 setting does not reach the plain step.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from cuda_iblb_11_tpu_torch.core import lattice
 from cuda_iblb_11_tpu_torch.core.lattice import (
     C, CS_KERNEL, MIRROR_X, MIRROR_Y, OPPOSITE, RHO_0, W,
 )
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 
 CS2 = CS_KERNEL * CS_KERNEL
 CS4 = CS2 * CS2
@@ -67,6 +70,7 @@ def _density(f, storage):
     return 1.0 + rho if storage == "deviatoric" else rho
 
 
+@full_f32()
 def moments(f, storage="raw"):
     """rho = sum_i f_i ; u = sum_i c_i f_i / rho (LatticeBoltzmann.cu:396-405)."""
     rho = _density(f, storage)
@@ -74,6 +78,7 @@ def moments(f, storage="raw"):
     return rho, mom / rho
 
 
+@full_f32()
 def corrected_velocity(f, force, storage="raw"):
     """u = (sum_i c_i f_i + force/2) / rho (ImmersedBoundary.cu:249-255)."""
     rho = _density(f, storage)
@@ -81,6 +86,7 @@ def corrected_velocity(f, force, storage="raw"):
     return rho, (mom + 0.5 * force) / rho
 
 
+@full_f32()
 def equilibrium(rho, u, storage="raw", drho=None):
     """Second-order D2Q9 equilibrium (LatticeBoltzmann.cu:47-50); in
     deviatoric storage f0_i - w_i = w_i [drho + rho poly], formed without
@@ -100,6 +106,7 @@ def equilibrium(rho, u, storage="raw", drho=None):
     return rho[None] * w * (1.0 + poly)
 
 
+@full_f32()
 def guo_forcing(u, force, tau, tau2=None, scheme="reference"):
     """Guo force term for all 9 populations (the collision ignores F[0]).
 

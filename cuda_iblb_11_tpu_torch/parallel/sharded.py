@@ -67,6 +67,7 @@ from cuda_iblb_11_tpu_torch.models.mucociliary import (
     prep_band_super_points,
 )
 from cuda_iblb_11_tpu_torch.ops import ib_band
+from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
     band_super, band_super_reference,
@@ -339,6 +340,7 @@ class ShardedPallasSim:
             f_new[d, lo:hi, lane] = col[lo:hi].to(f_new.dtype)
         return f_new
 
+    @full_f32()
     def _flux_column(self, f_blk, force, y0, lane, rows):
         """The sum over the block's first `rows` rows of the half-force
         corrected u_x at its column `lane` (ImmersedBoundary.cu:249-264)."""
@@ -444,6 +446,7 @@ class ShardedPallasSim:
                          lasts=pos[-1].to(self.aux_dtype), q=q,
                          it=state.it + n)
 
+    @full_f32()   # one pin per chunk around every step's contractions
     def run_chunk(self, state: MeshState, n_steps: int) -> MeshState:
         """n_steps iterations in pieces of <= 512 steps, each a multiple of
         K where it can be (sharded.py:370-381); the input state is not

@@ -1,0 +1,316 @@
+"""What holds the K-step driver (B4 and B7, csrc/ghost_temporal.cu) above
+its bound, on B4 at 2048^2, K = 16 (chip_smoke.py's timed case: f32
+deviatoric; and f64 raw).
+
+    python -m cuda_iblb_11_tpu_torch.probe_kstep [--reps N] [--json PATH]
+
+1. The kernel as built, timed (ops/probes.device_ms: CUDA events after a
+   spin kernel) at pass depths 8 (the driver's), 4 and 16, f32 and f64.
+2. The same sources with collide_cell replaced by a copy of its input,
+   built beside the library into build/kernels/probe_kstep/, at the same
+   depths in f32: the time of everything but the collide's arithmetic
+   (for this kernel, the identity-collide A/B of
+   scripts/probe_vpu.py:168-219).
+3. Residency, at depth 8 in f32: the driver's CUDA blocks (1,024
+   threads, one per SM) against blocks of at most 512 threads (narrower
+   strips, two per SM: the same 32 warps in two barrier domains), and each
+   again from a build that asks for 120 KiB of shared memory a block, so
+   that one block runs per SM.  If the 512-thread blocks take about twice
+   as long one per SM as two per SM, an SM does two blocks' rows in the
+   time of one: the row iteration waits on latency and the barrier, not
+   on instruction issue.  If about as long, the SM's issue slots are full.
+4. The kernel's registers (ptxas) and its SASS instruction mix
+   (cuobjdump), float and double, and the blocks per SM that the
+   registers, threads and shared memory allow.
+5. torch.profiler's device time of one call, by kernel.
+Output: build/probe_kstep.json by default.  Where no card is visible it
+raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+
+import torch
+
+from cuda_iblb_11_tpu_torch import SimConfig
+from cuda_iblb_11_tpu_torch.ops import _kernels, probes
+from cuda_iblb_11_tpu_torch.ops import ghost_temporal as gt
+from cuda_iblb_11_tpu_torch.ops import reference as ref
+from cuda_iblb_11_tpu_torch.ops.temporal_bulk import temporal_bulk
+
+DEFAULT_JSON = os.path.join(os.path.dirname(_kernels.BUILD_DIR),
+                            "probe_kstep.json")
+K = 16
+DEPTHS = (8, 4, 16)
+# threads per CUDA block at most, at depth 8 in f32: the driver's, and
+# half (narrower strips, two blocks per SM)
+THREAD_CAPS = (1024, 512)
+# an H100 SM: registers, warps
+REGS_SM = 65_536
+WARPS_SM = 64
+# what each A/B build changes in ghost_temporal.cu
+_SMEM = "const int smem = (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);"
+ONE_BLOCK_SMEM = 120 * 1024
+VARIANTS = {
+    # the collide's arithmetic taken out: each collide becomes a copy
+    "collide_as_copy": {
+        "collide_cell<T, false>(f, T(0.0), T(0.0), a.k, f1);":
+            "for (int d = 0; d < 9; ++d) f1[d] = f[d];",
+        "collide_cell<T, false>(p, T(0.0), T(0.0), a.k, f1);":
+            "for (int d = 0; d < 9; ++d) f1[d] = p[d];",
+    },
+    # one CUDA block per SM: each asks for over half an SM's shared memory
+    "one_block_per_sm": {
+        _SMEM: "const int smem = max((a.kp * RING + STAGES) * 9 * a.wc"
+               f" * (int)sizeof(T), {ONE_BLOCK_SMEM});",
+    },
+}
+
+
+def variant_libraries() -> dict:
+    """The kernel library built from csrc/ once per VARIANTS entry, into
+    build/kernels/probe_kstep/<name>/, all compiles started together."""
+    nvcc = _kernels.find_nvcc()
+    root = os.path.join(_kernels.BUILD_DIR, "probe_kstep")
+    shutil.rmtree(root, ignore_errors=True)
+    cmds, links = [], {}
+    for name, edits in VARIANTS.items():
+        out = os.path.join(root, name)
+        src = os.path.join(out, "src")
+        shutil.copytree(_kernels.CSRC, src)
+        path = os.path.join(src, "ghost_temporal.cu")
+        with open(path) as fh:
+            text = fh.read()
+        for old, new in edits.items():
+            if old not in text:
+                raise RuntimeError(f"probe_kstep: {old!r} not in {path}")
+            text = text.replace(old, new)
+        with open(path, "w") as fh:
+            fh.write(text)
+        units = sorted(u for u in os.listdir(src) if u.endswith(".cu"))
+        objs = [os.path.join(out, u + ".o") for u in units]
+        cmds += [[nvcc] + _kernels.NVCC_FLAGS
+                 + ["-c", os.path.join(src, u), "-o", o]
+                 for u, o in zip(units, objs)]
+        links[name] = (os.path.join(out, f"libiblb_kernels_{name}.so"),
+                       objs)
+    log = _kernels._run(cmds)
+    log += _kernels._run([[nvcc] + _kernels.ARCH + ["-shared", "-o", lib]
+                          + objs for lib, objs in links.values()])
+    return {name: _kernels.KernelLibrary(lib, 0.0, log)
+            for name, (lib, _) in links.items()}
+
+
+def bulk_call(dtype, storage):
+    """B4's call at 2048^2 with seeded inputs near equilibrium."""
+    cfg = SimConfig(c_num=16, c_space=128, ydim=2048)
+    band, dev = cfg.force_band, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (cfg.ydim, cfg.xdim)
+    rho = 1.0 + 0.02 * torch.randn(shape, generator=g, device=dev,
+                                   dtype=torch.float64)
+    u = 0.01 * torch.randn((2,) + shape, generator=g, device=dev,
+                           dtype=torch.float64)
+    f = ref.equilibrium(rho, u, storage).to(dtype).contiguous()
+    bh = f[None, :, band - 1].repeat(K, 1, 1).contiguous()
+    out = torch.empty_like(f[:, band:])
+
+    def call():
+        return temporal_bulk(f[:, band:], bh, cfg, ref.REFERENCE_WALLS,
+                             "trt_split", storage, out=out)
+
+    return call, (cfg.ydim - band, 0, cfg.xdim)
+
+
+def time_geometry(call, block, reps, dtype, kb, threads=None) -> dict:
+    """ms per call with kb levels per pass and at most ``threads`` per
+    CUDA block (the driver's cap unless given), with the geometry."""
+    saved = gt.KB, gt.MAX_THREADS[dtype]
+    try:
+        gt.KB = kb
+        gt.MAX_THREADS[dtype] = threads or saved[1]
+        gt._geometry.cache_clear()
+        geo = gt.kstep_geometry(*block, K, dtype,
+                                gt._sm_count(torch.device("cuda")))
+        call()
+        ms = probes.device_ms(call, reps)
+    finally:
+        gt.KB, gt.MAX_THREADS[dtype] = saved
+        gt._geometry.cache_clear()
+    p = geo.passes[0]
+    return dict(ms=ms, hbm_passes=geo.hbm_passes,
+                redundancy=geo.redundancy, wc=p.wc, threads=p.threads,
+                smem_bytes=p.smem_bytes, blocks=p.n_strips * p.n_seg,
+                ps_per_collided_cell=ms * 1e9 / (
+                    geo.redundancy * K * geo.rows * geo.width))
+
+
+def time_depths(call, block, reps, dtype=torch.float32) -> dict:
+    """ms per call at each pass depth, with the geometry of each."""
+    return {kb: time_geometry(call, block, reps, dtype, kb)
+            for kb in DEPTHS}
+
+
+def blocks_per_sm(threads, smem, registers) -> int:
+    """CUDA blocks an H100 SM holds at once: by warps, by registers
+    (allocated 256 a warp at a time), by shared memory (1 KiB of it kept
+    per block)."""
+    warps = -(-threads // 32)
+    regs_warp = -(-registers * 32 // 256) * 256
+    return min(WARPS_SM // warps, REGS_SM // (regs_warp * warps),
+               gt.SMEM_SM // (smem + 1024), 32)
+
+
+def residency(call, block, reps, libs, registers) -> dict:
+    """The A/B of the docstring's item 3, f32 at depth 8."""
+    rows = {}
+    for cap in THREAD_CAPS:
+        for name in ("kernel", "one_block_per_sm"):
+            if name != "kernel":
+                _kernels._LIBRARY = libs[name]
+            try:
+                row = time_geometry(call, block, reps, torch.float32, 8,
+                                    cap)
+            finally:
+                _kernels._LIBRARY = libs["kernel"]
+            smem = row["smem_bytes"]
+            if name != "kernel":
+                smem = max(smem, ONE_BLOCK_SMEM)
+            per_sm = blocks_per_sm(row["threads"], smem, registers)
+            row.update(blocks_per_sm=per_sm,
+                       warps_per_sm=per_sm * -(-row["threads"] // 32))
+            rows[f"{cap}_threads_{name}"] = row
+        rows[f"{cap}_threads_slowdown_at_one_block_per_sm"] = (
+            rows[f"{cap}_threads_one_block_per_sm"]["ms"]
+            / rows[f"{cap}_threads_kernel"]["ms"])
+    return rows
+
+
+def kernel_build_info(lib) -> dict:
+    """Registers (ptxas) and the SASS instruction mix of the K-step
+    kernel, for float and double."""
+    info = {}
+    log = lib.build_log.splitlines()
+    for i, line in enumerate(log):
+        m = re.search(r"kstep_kernelI([fd])E", line)
+        if m and "Compiling entry" in line:
+            for nxt in log[i + 1:i + 4]:
+                r = re.search(r"Used (\d+) registers", nxt)
+                if r:
+                    info.setdefault(m.group(1), {})["registers"] = int(
+                        r.group(1))
+    tool = shutil.which("cuobjdump") or os.path.join(_kernels.CUDA_ROOT,
+                                                     "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return info
+    text = subprocess.run([tool, "-sass", lib.path], capture_output=True,
+                          text=True, timeout=300).stdout
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        m = re.search(r"kstep_kernelI([fd])E", block.split("\n", 1)[0])
+        if m:
+            ops = [o.split(".")[0] for o in re.findall(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                block)]
+            mix = collections.Counter(ops)
+            info.setdefault(m.group(1), {}).update(
+                sass_instructions=len(ops), sass_mix=dict(mix.most_common(16)))
+    return info
+
+
+def profile_call(call) -> dict:
+    """Device ms per call by kernel name (torch.profiler, 3 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if t:
+            rows[ev.key[:80]] = t / 1e3 / 3
+    return rows
+
+
+def measure(reps: int = 20) -> dict:
+    probes.require_card("probe_kstep")
+    from cuda_iblb_11_tpu_torch.probe_bw import card_line
+
+    call64, block = bulk_call(torch.float64, "raw")
+    f64 = time_depths(call64, block, reps, torch.float64)
+    del call64
+    call, block = bulk_call(torch.float32, "deviatoric")
+    lib = _kernels.load()
+    rec = {"card": card_line(), "device": torch.cuda.get_device_name(0),
+           "case": "B4 2048^2, K = 16, f32 deviatoric (f64: raw)",
+           "kernel": time_depths(call, block, reps), "kernel_f64": f64,
+           "build": kernel_build_info(lib),
+           "profile_ms_per_call": profile_call(call)}
+    libs = dict(variant_libraries(), kernel=lib)
+    _kernels._LIBRARY = libs["collide_as_copy"]
+    try:
+        rec["collide_as_copy"] = time_depths(call, block, reps)
+    finally:
+        _kernels._LIBRARY = lib
+    for kb in DEPTHS:
+        rec["kernel"][kb]["share_without_collide"] = (
+            rec["collide_as_copy"][kb]["ms"] / rec["kernel"][kb]["ms"])
+    rec["residency"] = residency(call, block, reps, libs,
+                                 rec["build"]["f"]["registers"])
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=20,
+                    help="calls per timing")
+    ap.add_argument("--json", default=DEFAULT_JSON, help="output record")
+    args = ap.parse_args(argv)
+    rec = measure(args.reps)
+    for kb, row in rec["kernel"].items():
+        print(f"depth {kb}: {row['ms']:.4f} ms per call "
+              f"({row['hbm_passes']} passes, redundancy "
+              f"{row['redundancy']:.3f}); collide as a copy "
+              f"{rec['collide_as_copy'][kb]['ms']:.4f} ms "
+              f"({row['share_without_collide']:.0%}); f64 "
+              f"{rec['kernel_f64'][kb]['ms']:.4f} ms "
+              f"({rec['kernel_f64'][kb]['hbm_passes']} passes)")
+    for t, b in rec["build"].items():
+        print(f"kstep_kernel<{'float' if t == 'f' else 'double'}>: "
+              f"{b.get('registers')} registers, "
+              f"{b.get('sass_instructions')} SASS instructions, "
+              f"{b.get('sass_mix')}")
+    for name, row in rec["residency"].items():
+        if isinstance(row, float):
+            print(f"residency: {name}: {row:.3f}")
+        else:
+            print(f"residency: {name}: {row['ms']:.4f} ms per call, Wc "
+                  f"{row['wc']}, {row['threads']} threads, "
+                  f"{row['blocks']} blocks, {row['blocks_per_sm']} per SM "
+                  f"({row['warps_per_sm']} warps), redundancy "
+                  f"{row['redundancy']:.3f}, "
+                  f"{row['ps_per_collided_cell']:.3f} ps per collided cell")
+    for name, ms in rec["profile_ms_per_call"].items():
+        print(f"profile: {name}: {ms:.4f} ms per call")
+    print(f"card: {rec['card']}")
+    os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+    with open(args.json, "w") as fh:
+        json.dump(rec, fh, indent=1)
+    print(f"wrote {args.json}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

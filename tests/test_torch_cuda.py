@@ -1,10 +1,13 @@
 """Tests that need the card: the hand kernels of csrc/ (B2, B3 and B2h
 fused_step.cu, B4 and B7 ghost_temporal.cu, B5, B6 and B8 band_super.cu,
 B0 collide_rows.cu, P1-P3 probes.cu) against their plain versions on the
-same inputs on the GPU, B7 with B4's flags against B4 bit for bit, and the
-model's cuda backend against its torch backend, single-step, temporal (all
-three band legs), sharded (shards sharing the card, every leg) and in the
-quirk mode (two runs bit for bit), and the channel through B2h.  They carry the
+same inputs on the GPU, B7 with B4's flags against B4 bit for bit, B4
+against K launches of B3 bit for bit, the K-step driver's passes at
+ragged widths, in f64 and with NaN ghosts, and the model's cuda backend
+against its torch backend, single-step, temporal (all three band legs),
+sharded (shards sharing the card, every leg) and in the quirk mode (two
+runs bit for bit; f64 at 2048^2 within 1e-12), the channel through B2h,
+and a caller's TF32 setting kept out of the IB.  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -55,7 +58,7 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
     sharded_fused_substep_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
-    ghost_temporal, ghost_temporal_reference,
+    ghost_temporal, ghost_temporal_reference, kstep_geometry,
 )
 from cuda_iblb_11_tpu_torch.ops.temporal import (
     band_super_resident, plan_temporal, xshard_layout,
@@ -167,6 +170,39 @@ def test_sim_cuda_backend_matches_torch_backend(card, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,temporal", [("cuda", 1), ("cuda", 16),
+                                              ("torch", 1)])
+def test_tf32_setting_does_not_reach_the_ib(card, backend, temporal):
+    # a caller who allows TF32 ("high" and allow_tf32) gets the same 2048^2
+    # run of 64 steps, bit for bit, as with both off: the IB matmuls and
+    # the plain collide's einsums (the torch backend's step is B2's plain
+    # version, fused_substep_reference) pin full f32
+    # (ops/precision.full_f32) and give the caller's setting back
+    cfg = SimConfig(c_num=16, c_space=128, ydim=2048)
+    saved = torch.get_float32_matmul_precision()
+
+    def run():
+        sim = MucociliarySim(cfg, device=card, backend=backend,
+                             temporal=temporal)
+        return sim.run_chunk(sim.init_state(), 64)
+
+    try:
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        loose = run()
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        strict = run()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert torch.equal(loose.f, strict.f)
+    assert torch.equal(loose.force, strict.force)
+    assert float(loose.q) == float(strict.q)
 
 
 # --- B3, B4, B5 --------------------------------------------------------
@@ -542,6 +578,143 @@ def test_b7_with_b4_flags_is_b4(card, dtype, storage, top):
     assert torch.equal(b7[1], b4[1])
 
 
+# --- the K-step driver's passes, strips and segments (B4 and B7) -------
+
+KSTEP_WIDTHS = {288: dict(c_num=6, c_space=48), 150: dict(c_num=3,
+                                                          c_space=50)}
+
+
+def _bulk_case(width, dtype, storage, K, seed):
+    """B4's inputs on a 256-row grid of the given width: the bulk rows as
+    a row range of the state, and K perturbed seam halos."""
+    cfg = SimConfig(ydim=256, **KSTEP_WIDTHS[width])
+    band = cfg.force_band
+    f, _ = random_inputs(cfg, storage, dtype, torch.device("cuda"), seed)
+    bh = f[None, :, band - 1] * (1.0 + 1e-3 * torch.arange(
+        K, device=f.device, dtype=dtype)[:, None, None])
+    return cfg, f, bh.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 5, 8, 16])
+@pytest.mark.parametrize("width", sorted(KSTEP_WIDTHS))
+def test_b4_shapes_match_plain_version(card, K, width):
+    # K of one pass and of two (depth 8 each), at widths no strip width
+    # divides (ragged last strips; at 150 one strip wraps the domain)
+    cfg, f, bh = _bulk_case(width, torch.float32, "deviatoric", K, seed=K)
+    walls = ref.WallSpec(top="noslip")
+    band = cfg.force_band
+    geo = kstep_geometry(cfg.ydim - band, 0, width, K, torch.float32)
+    assert geo.hbm_passes == -(-K // 8)
+    before = temporal_bulk.launches
+    got = temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split",
+                        "deviatoric")
+    want = temporal_bulk_reference(f[:, band:], bh, cfg, walls, "trt_split",
+                                   "deviatoric")
+    torch.cuda.synchronize()
+    assert temporal_bulk.launches == before + 1
+    _check_all(got, want, [("f", GATE[torch.float32]),
+                           ("flux", GATE[torch.float32])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 5, 8, 16])
+def test_b7_xsharded_shapes_match_plain_version(card, K):
+    # an x-sharded block, 96 + 2 x 128 columns: the inject shard that owns
+    # the flux column, held on the rows it owns above the seam
+    cfg = SimConfig(**SMALL)
+    band, yl, pad, xl, xpad = cfg.force_band, 64, 16, 96, 128
+    f, _ = random_inputs(cfg, "deviatoric", torch.float32, card, seed=20)
+    f_loc, bot, top_g, bh = _ghost_case(cfg, f, 96, yl, 0, xl, xpad, K)
+    lb = band - 96
+    flags = (1, 0, pad + lb, xpad + cfg.flux_x % xl, 1)
+    args = (flags, f_loc, bot, top_g, bh, cfg, ref.WallSpec(), "trt_split",
+            "deviatoric")
+    got = ghost_temporal(*args)
+    want = ghost_temporal_reference(*args)
+    torch.cuda.synchronize()
+    own = np.s_[:, pad + lb:pad + yl, xpad:xpad + xl]
+    assert torch.isfinite(got[0][own]).all()
+    assert rel_l2(got[0][own], want[0][own]) <= GATE[torch.float32]
+    assert rel_l2(got[1], want[1]) <= GATE[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B4", "B7"])
+def test_kstep_f64_two_passes_match_plain_version(card, kernel):
+    # f64 at K = 16: two passes of 8 through the scratch block, the
+    # shared-memory choice of f64 (Wc = 89)
+    K, dt = 16, torch.float64
+    walls = ref.WallSpec(top="slip")
+    if kernel == "B4":
+        cfg, f, bh = _bulk_case(288, dt, "raw", K, seed=21)
+        band = cfg.force_band
+        got = temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split", "raw")
+        want = temporal_bulk_reference(f[:, band:], bh, cfg, walls,
+                                       "trt_split", "raw")
+        torch.cuda.synchronize()
+        _check_all(got, want, [("f", GATE[dt]), ("flux", GATE[dt])])
+        return
+    cfg = SimConfig(**SMALL)
+    band, yl, pad, xl, xpad = cfg.force_band, 64, 16, 96, 128
+    f, _ = random_inputs(cfg, "raw", dt, card, seed=22)
+    f_loc, bot, top_g, bh = _ghost_case(cfg, f, 192, yl, 0, xl, xpad, K)
+    flags = (0, 1, pad, xpad + cfg.flux_x % xl, 1)
+    args = (flags, f_loc, bot, top_g, bh, cfg, walls, "trt_split", "raw")
+    assert kstep_geometry(yl, pad, xl + 2 * xpad, K, dt).hbm_passes == 2
+    got = ghost_temporal(*args)
+    want = ghost_temporal_reference(*args)
+    torch.cuda.synchronize()
+    own = np.s_[:, pad:pad + yl, xpad:xpad + xl]
+    assert rel_l2(got[0][own], want[0][own]) <= GATE[dt]
+    assert rel_l2(got[1], want[1]) <= GATE[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [5, 16])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b4_is_k_launches_of_b3(card, K, dtype, storage, top):
+    # the old arithmetic: B3 with flags (band, 0, 1), the seam halo as its
+    # bottom halo row, launched K times; B4's f bit for bit
+    cfg, f, bh = _bulk_case(288, dtype, storage, K, seed=23)
+    walls = ref.WallSpec(top=top)
+    band = cfg.force_band
+    b4 = temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split", storage)
+    cur = f[:, band:]
+    for s in range(K):
+        cur = sharded_fused_substep((band, 0, 1), cur, None, bh[s], None,
+                                    cfg, walls, "trt_split", storage)[0]
+    assert torch.equal(b4[0], cur)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 16])
+def test_b7_nan_ghosts_keep_owned_cells(card, K):
+    # NaN in the ghost rows (sealed: the seam at the bottom owned row, the
+    # top wall at the top one) and in the ghost columns farther than K from
+    # the owned ones: the owned cells stay finite and equal the plain
+    # version's on the same inputs
+    cfg = SimConfig(**SMALL)
+    band, yl, pad, xl, xpad = cfg.force_band, 128, 16, 96, 128
+    f, _ = random_inputs(cfg, "deviatoric", torch.float32, card, seed=24)
+    f_loc, bot, top_g, bh = _ghost_case(cfg, f, band, yl, 0, xl, xpad, K)
+    f_loc = f_loc.clone()
+    f_loc[:, :, :xpad - K] = float("nan")
+    f_loc[:, :, xpad + xl + K:] = float("nan")
+    bot = torch.full_like(bot, float("nan"))
+    top_g = torch.full_like(top_g, float("nan"))
+    flags = (1, 1, pad, xpad + cfg.flux_x % xl, 1)
+    args = (flags, f_loc, bot, top_g, bh, cfg, ref.WallSpec(), "trt_split",
+            "deviatoric")
+    got = ghost_temporal(*args)
+    want = ghost_temporal_reference(*args)
+    torch.cuda.synchronize()
+    own = np.s_[:, pad:pad + yl, xpad:xpad + xl]
+    assert torch.isfinite(got[0][own]).all() and torch.isfinite(got[1]).all()
+    assert rel_l2(got[0][own], want[0][own]) <= GATE[torch.float32]
+    assert rel_l2(got[1], want[1]) <= GATE[torch.float32]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_num,n_x", [(16, 2), (10, 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -714,6 +887,21 @@ def test_quirk_cuda_matches_torch_backend(card, temporal, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))
+
+
+@pytest.mark.cuda
+def test_quirk_f64_cuda_matches_torch_backend_at_2048(card):
+    # the f64 witness of the quirk path's kernel-vs-torch gap: B2h and the
+    # stencil IB on the card against the plain path, 64 single steps at
+    # 2048^2 with 16 cilia; round-off only leaves about 1e-15
+    cfg = SimConfig(c_num=16, c_space=128, ydim=2048, dtype="float64")
+    u = {}
+    for backend in ("cuda", "torch"):
+        sim = MucociliarySim(cfg, backend=backend, device=card, temporal=1,
+                             ib_x_edge="reference")
+        u[backend] = sim.fields(sim.run_chunk(sim.init_state(), 64))[1]
+    assert torch.isfinite(u["cuda"]).all()
+    assert rel_l2(u["cuda"], u["torch"]) <= 1e-12
 
 
 @pytest.mark.cuda

@@ -7,6 +7,8 @@ Integer periodic folds must agree exactly (the delta factors built from
 them are then compared at the same tolerance).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,10 +45,51 @@ def _points(seed):
     return anchor, frac
 
 
-def test_tf32_is_off():
-    # the GPU form of the JAX package's _PREC = HIGH (ib_band.py:35-40)
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
+def test_tf32_is_off(monkeypatch):
+    # the GPU form of the JAX package's _PREC = HIGH (ib_band.py:35-40):
+    # the IB contractions run in full f32 whatever precision the caller
+    # set ("high" lets torch use TF32 on the card and bf16 passes on the
+    # CPU), the caller's setting comes back after them, and importing the
+    # module leaves it alone
+    b = torch.backends
+    seen = []
+    matmul = torch.matmul
+
+    def spy(*args):
+        seen.append((torch.get_float32_matmul_precision(),
+                     b.cuda.matmul.fp32_precision,
+                     b.mkldnn.matmul.fp32_precision, b.cudnn.allow_tf32))
+        return matmul(*args)
+
+    anchor, frac = _points(0)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((3, BAND, XDIM)))
+    u_s = torch.from_numpy(rng.standard_normal((NS, 2)))
+    eps = torch.from_numpy(rng.uniform(0.5, 1.0, NS))
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        importlib.reload(tband)
+        caller = (torch.get_float32_matmul_precision(),
+                  b.cuda.matmul.fp32_precision,
+                  b.mkldnn.matmul.fp32_precision, b.cudnn.allow_tf32)
+        assert caller == ("high", "tf32", "tf32", True)
+        factors = tband.delta_factors(
+            (torch.from_numpy(anchor), torch.from_numpy(frac)), XDIM, BAND,
+            torch.float64)
+        monkeypatch.setattr(torch, "matmul", spy)
+        f_s = tband.interpolate_from_moments(q, u_s, factors)
+        tband.spread(f_s, eps, factors)
+        tib.spread(f_s, torch.from_numpy(rng.uniform(0, XDIM, (NS, 2))),
+                   eps, XDIM, BAND)
+        monkeypatch.undo()
+        assert len(seen) == 3
+        assert set(seen) == {("highest", "ieee", "ieee", False)}
+        assert (torch.get_float32_matmul_precision(),
+                b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision,
+                b.cudnn.allow_tf32) == caller
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def test_delta_1d():

@@ -118,3 +118,39 @@ def test_wallspec_validation():
         tref.WallSpec(top="sticky")
     with pytest.raises(ValueError):
         tref.WallSpec(left="periodic", right="noslip")
+
+
+def _precision():
+    b = torch.backends
+    return (torch.get_float32_matmul_precision(),
+            b.cuda.matmul.fp32_precision, b.mkldnn.matmul.fp32_precision,
+            b.cudnn.allow_tf32)
+
+
+def test_plain_collide_pins_full_f32(monkeypatch):
+    # the plain step's einsums (the torch backend's step on the card and
+    # every kernel's plain version) run in full f32 whatever the caller
+    # set, and the caller's "high" comes back after them
+    f, force, _, _ = _fields(2)
+    f, force = (torch.from_numpy(a).float() for a in (f, force))
+    seen = []
+    einsum = torch.einsum
+
+    def spy(*args):
+        seen.append(_precision())
+        return einsum(*args)
+
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        caller = _precision()
+        assert caller == ("high", "tf32", "tf32", True)
+        monkeypatch.setattr(torch, "einsum", spy)
+        tref.collide_rows(f, force, 0.8, 1.1, "trt_split", "raw")
+        tref.moments(f)
+        monkeypatch.undo()
+        assert len(seen) == 4   # corrected_velocity, equilibrium, guo, moments
+        assert set(seen) == {("highest", "ieee", "ieee", False)}
+        assert _precision() == caller
+    finally:
+        torch.set_float32_matmul_precision(saved)

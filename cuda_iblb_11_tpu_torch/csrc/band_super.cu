@@ -46,20 +46,42 @@
 // flux [K] (raw sums; the caller divides by 192; not written when
 // flux_x = -1).
 //
-// Design, a first version: one launch per stage per sub-step, with the
-// band L2-resident between them (at 2048^2 the extended band is 10.6 MB
-// in f32, inside the 50 MB L2): stage 1-3 is the row kernel of step.cuh,
-// stage 4 one thread per point (interp_kernel), stage 5-6 one thread per
-// band cell (spread_kernel), and after the K sub-steps one
-// column_sum_kernel launch (3K + 1 launches).  The TPU contracts each
-// window densely on the MXU (a [3 band, W] x [W, 128] interpolation and a
-// [2 band, 128] x [128, W] spread per cilium, with a bf16 split for f32
-// precision, :1226-1251).  The delta has a 3-cell support (ops/ib.py:50-63),
-// so here each point gathers its 5 x 5 stencil in full-precision FMA, and
-// each cell gathers the points of the windows that cover it, rejecting the
-// points whose stencil misses it: the same function, about 1000x less
-// arithmetic.  Both reductions are gathers in a fixed order, with no
-// atomics, so a run repeats bit for bit.
+// Design: one launch per stage per sub-step, with the band L2-resident
+// between them (at 2048^2 the extended band is 10.6 MB in f32, inside the
+// 50 MB L2): stages 1-3 are the row kernel of step.cuh, stage 4
+// interp_kernel, stages 5-6 spread_kernel, and after the K sub-steps one
+// column_sum_kernel launch: 3K + 1 launches per call.  The TPU contracts
+// each window densely on the MXU (a [3 band, W] x [W, 128] interpolation
+// and a [2 band, 128] x [128, W] spread per cilium, with a bf16 split for
+// f32 precision, :1226-1251).
+// The delta has a 3-cell support (ops/ib.py:50-63), so here both stages
+// are stencil gathers in full-precision FMA, in a fixed order, with no
+// atomics, so a run repeats bit for bit:
+//   interp_kernel: five lanes a point, one per stencil row (6 points a
+//     warp, 24 a 128-thread block: 86 blocks for the 2,048 points at
+//     2048^2, where one thread a point gave 16); lane r gathers row
+//     ay - 2 + r, then lane 0 of the group folds the five rows in row
+//     order.  No shared memory.
+//   spread_kernel: one thread a band cell, 32 x 8 a block.  The block
+//     first lists its candidates in shared memory: the windows that meet
+//     its tile (a ballot over the cilia), then, two windows a round, the
+//     points whose 5 x 5 support meets the tile widened by 2 (a ballot and
+//     prefix count over each window's 128 points), in point order, each
+//     with dy a0, dy a1 and dx for its five row and column offsets.  Each
+//     cell then tests that list alone (the nodes that come within two
+//     cells of the tile), where the all-points loop tested 384 points a
+//     cell (3 windows of 128 at 2048^2), and the delta factors are formed
+//     once a candidate, not once a cell.  Shared memory: 21,536 bytes a
+//     block in f32, 37,920 in f64 (the list holds SCAP = 256
+//     candidates).  A round that would pass 256 is preceded by a pass over
+//     the list so far, which is then emptied: a block with more candidates
+//     (three cilia curled into one tile hold 384) sums them in more
+//     passes, in the same order, never cut.
+// Both reductions take each cell's terms in the order of the earlier
+// all-points loop (cilium, then point; fma for fma), so every output
+// equals that version's bit for bit (PERF.md §6).
+// Registers (ptxas, sm_90a): spread_kernel 47 (float) and 62 (double),
+// interp_kernel 32 and 52, the forced step_kernel 32 and 63; no spills.
 //
 // What bounds it on an H100: arithmetic, at K = 16.  The call must read
 // f_ext, the force and the points and write f_band, bhalos and the force
@@ -67,11 +89,12 @@
 // operations per band cell and sub-step in the forced collide, 101 in the
 // force-free collide of the K - s ghost rows that still reach the band at
 // sub-step s, plus the moments and each point's 3 x 3 delta support
-// (0.80 GFLOP at K = 16, 0.012 ms at 67 TFLOP/s).  This version takes 1.36 ms (chip_smoke.py; NVIDIA H100 80GB
-// HBM3 at 700 W): per sub-step the spread gather (each cell tests the 128
-// points of every window that covers it) takes about 0.061 ms, the
-// interpolation 0.012 ms and the step 0.010 ms (profile_step.py), each
-// launch a dependent pass over the L2-resident band.
+// (0.80 GFLOP at K = 16, 0.012 ms at 67 TFLOP/s).  The call takes about
+// 0.40 ms at 2048^2 (PERF.md; NVIDIA H100 80GB HBM3 at 700 W): per
+// sub-step the forced step about 0.0096 ms, the spread 0.0072 and the
+// interpolation 0.0046, each a dependent pass over the L2-resident band,
+// and the 49 launches' gaps the rest.  The interpolation's and the
+// spread's times are mostly each launch's fixed cost.
 //
 // B6 at 8192^2 (f32, K = 16): the JAX rule with the card's L2 as the
 // budget takes 8 tiles of 1,024 interior + 2 x 512 ghost columns, so each
@@ -131,93 +154,214 @@ struct IbArgs {
 
 // Stage 4: F_s = 2 (u_s I_rho - I_mom) per point (ImmersedBoundary.cu:
 // 94-133), times the overlap mask, from the 5 x 5 cells around its anchor
-// (the delta vanishes beyond 1.5 cells and |frac| <= 0.5).
+// (the delta vanishes beyond 1.5 cells and |frac| <= 0.5).  IROW lanes a
+// point, lane r on stencil row ay - 2 + r with its five columns; lane 0 of
+// the group then folds the rows in row order.  The sums are the
+// one-thread-a-point loop's, fma for fma: t = fma(q, dx, t) along the row,
+// iq = fma(dy, t, iq) down the rows, rows and columns outside the band or
+// the window skipped.
+constexpr int IROW = 5;                      // lanes a point
+constexpr int IPW = 32 / IROW;               // points a warp (6; 2 lanes idle)
+constexpr int ITHREADS = 128;
+constexpr int IPB = IPW * (ITHREADS / 32);   // points a block (24)
+
 template <typename T>
-__global__ void interp_kernel(const IbArgs<T> b) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(ITHREADS) interp_kernel(const IbArgs<T> b) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane / IROW;
+  const int r = lane - g * IROW;
+  const int i = blockIdx.x * IPB + (threadIdx.x >> 5) * IPW + g;
   const int npts = b.c_num * NPT;
-  if (i >= npts) return;
-  const int m = i / NPT;
-  const int ay = b.ay[i];
-  const int ax = b.axl[i];
-  const T fy = b.fy[i];
-  const T fx = b.fx[i];
-  const int wstart = b.win_lo0 + m * b.cw;
-  const long long plane = (long long)b.band * b.xdim;
-  T iq[3] = {T(0.0), T(0.0), T(0.0)};
-  for (int yy = ay - 2; yy <= ay + 2; ++yy) {
-    if (yy < 0 || yy >= b.band) continue;
-    const T dy = delta_1d(T(yy - ay) - fy);
-    T t[3] = {T(0.0), T(0.0), T(0.0)};
-    for (int ww = ax - 2; ww <= ax + 2; ++ww) {
-      if (ww < 0 || ww >= b.wwin) continue;
-      const T dx = delta_1d(T(ww - ax) - fx);
-      const long long j = (long long)yy * b.xdim + wrap(wstart + ww, b.xdim);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) t[c] += b.q[c * plane + j] * dx;
+  const bool active = g < IPW && i < npts;
+  int ok = 0;
+  T dy = T(0.0);
+  T t[3] = {T(0.0), T(0.0), T(0.0)};
+  T em = T(0.0), us0 = T(0.0), us1 = T(0.0);
+  if (active) {
+    const int m = i / NPT;
+    const int ay = b.ay[i];
+    const int ax = b.axl[i];
+    const T fx = b.fx[i];
+    if (r == 0) {   // the fold's inputs, loaded early
+      em = b.eps[i];
+      us0 = b.us[i];
+      us1 = b.us[npts + i];
     }
+    const int yy = ay - 2 + r;
+    if (yy >= 0 && yy < b.band) {
+      ok = 1;
+      dy = delta_1d(T(yy - ay) - b.fy[i]);
+      const int wstart = b.win_lo0 + m * b.cw;
+      const long long plane = (long long)b.band * b.xdim;
+      for (int ww = ax - 2; ww <= ax + 2; ++ww) {
+        if (ww < 0 || ww >= b.wwin) continue;
+        const T dx = delta_1d(T(ww - ax) - fx);
+        const long long j = (long long)yy * b.xdim + wrap(wstart + ww, b.xdim);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) iq[c] += dy * t[c];
+        for (int c = 0; c < 3; ++c) t[c] = fma(b.q[c * plane + j], dx, t[c]);
+      }
+    }
   }
-  const T em = b.eps[i];
-  b.amp[i] = (T(2.0) * (b.us[i] * iq[0] - iq[1])) * em;
-  b.amp[npts + i] = (T(2.0) * (b.us[npts + i] * iq[0] - iq[2])) * em;
+  // every lane takes part in the shuffles; lane 0 of a group folds
+  const int base = min(g * IROW, 32 - IROW);
+  T iq[3] = {T(0.0), T(0.0), T(0.0)};
+#pragma unroll
+  for (int rr = 0; rr < IROW; ++rr) {
+    const int src = base + rr;
+    const int okr = __shfl_sync(0xffffffffu, ok, src);
+    const T dyr = __shfl_sync(0xffffffffu, dy, src);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const T tr = __shfl_sync(0xffffffffu, t[c], src);
+      if (okr) iq[c] = fma(dyr, tr, iq[c]);
+    }
+  }
+  if (!active || r != 0) return;
+  b.amp[i] = (T(2.0) * (us0 * iq[0] - iq[1])) * em;
+  b.amp[npts + i] = (T(2.0) * (us1 * iq[0] - iq[2])) * em;
 }
 
 // Stages 5-6: each band cell gathers the forces of the points whose delta
 // support covers it, cilium by cilium in order (every window that covers
 // the cell, under the periodic wrap; in block order on a tile), then the
-// flux column.
+// flux column.  A block first lists its candidates in shared memory: the
+// windows that meet its tile (the circle test below), two at a time, and
+// of each the points whose 5 x 5 support meets the tile's rows and
+// columns, compacted by a warp ballot in point order.  Each candidate
+// carries its window start and anchor, dy * a0 and dy * a1 for the five
+// row offsets and dx for the five column offsets, formed once for the
+// block.  Each cell then runs the per-cell test and sum over the list
+// alone: a point that misses the cell adds nothing, so its force takes
+// the terms of every point that reaches it, cilium by cilium and point by
+// point, as a loop over all the points would.  A list that would pass
+// SCAP entries is summed and emptied first (a second pass over the rest,
+// in order), never cut.
+constexpr int STHREADS = TX * TY;            // 256: two windows of points
+constexpr int SWARPS = STHREADS / 32;
+constexpr int SCAP = 256;                    // candidates a pass
+constexpr int SV = 16;                       // values a candidate (15 used)
+
 template <typename T>
-__global__ void __launch_bounds__(TX * TY) spread_kernel(const IbArgs<T> b) {
-  __shared__ int s_ax[NPT];
-  __shared__ int s_ay[NPT];
-  __shared__ T s_fx[NPT];
-  __shared__ T s_fy[NPT];
-  __shared__ T s_a0[NPT];
-  __shared__ T s_a1[NPT];
+struct SpreadList {
+  int win[STHREADS];     // the windows met, in order (one chunk of c_num)
+  int cnt[SWARPS];       // per-warp ballot counts of a round
+  int4 pt[SCAP];         // (window start on the circle, ax, ay, 0)
+  T v[SCAP][SV];         // dy(o) a0, dy(o) a1, dx(o), o = 0..4: offset o - 2
+};
+
+// The block's prefix over the warps' ballots: the slot of thread tid (its
+// linear index) among the set predicates, and the round's total in tot.
+// Synchronises the block between writing the counts and reading them.
+__device__ __forceinline__ int block_ballot(bool pred, int tid, int* cnt,
+                                            int& tot) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const unsigned bal = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0) cnt[warp] = __popc(bal);
+  __syncthreads();
+  int off = __popc(bal & ((1u << lane) - 1u));
+  tot = 0;
+#pragma unroll
+  for (int w = 0; w < SWARPS; ++w) {
+    off += w < warp ? cnt[w] : 0;
+    tot += cnt[w];
+  }
+  return off;
+}
+
+template <typename T>
+__device__ __forceinline__ void spread_sum(const SpreadList<T>& s, int n,
+                                           int x, int y, int xdim, int wwin,
+                                           T& acc0, T& acc1) {
+  for (int k = 0; k < n; ++k) {
+    const int4 p = s.pt[k];
+    const int oy = y - p.z + 2;
+    if ((unsigned)oy > 4u) continue;
+    int w = x - p.x;
+    w += w < 0 ? xdim : 0;
+    const int ox = w - p.y + 2;
+    if (w >= wwin || (unsigned)ox > 4u) continue;
+    const T dx = s.v[k][10 + ox];
+    acc0 = fma(s.v[k][oy], dx, acc0);
+    acc1 = fma(s.v[k][5 + oy], dx, acc1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
+  __shared__ SpreadList<T> s;
   const int x0 = blockIdx.x * TX;
   const int tw = min(TX, b.xdim - x0);
+  const int y0 = blockIdx.y * TY;
+  const int y1 = min(y0 + TY, b.band) - 1;   // the tile's last row
   const int x = x0 + threadIdx.x;
-  const int y = blockIdx.y * TY + threadIdx.y;
+  const int y = y0 + threadIdx.y;
   const bool valid = x < b.xdim && y < b.band;
   const int tid = threadIdx.y * TX + threadIdx.x;
   const int npts = b.c_num * NPT;
   T acc0 = T(0.0);
   T acc1 = T(0.0);
-  for (int m = 0; m < b.c_num; ++m) {
-    const int wstart = wrap(b.win_lo0 + m * b.cw, b.xdim);
-    // window [wstart, wstart + W) and tile [x0, x0 + tw), on the circle
-    if (wrap(x0 - wstart, b.xdim) >= b.wwin &&
-        wrap(wstart - x0, b.xdim) >= tw) {
-      continue;  // block-uniform
+  int n = 0;   // entries in the list (the same in every thread)
+  for (int mb = 0; mb < b.c_num; mb += STHREADS) {
+    const int m = mb + tid;
+    bool meet = false;
+    if (m < b.c_num) {
+      const int wstart = wrap(b.win_lo0 + m * b.cw, b.xdim);
+      // window [wstart, wstart + W) and tile [x0, x0 + tw), on the circle
+      meet = wrap(x0 - wstart, b.xdim) < b.wwin ||
+             wrap(wstart - x0, b.xdim) < tw;
     }
+    int nwin;
+    const int wslot = block_ballot(meet, tid, s.cnt, nwin);
+    if (meet) s.win[wslot] = m;
     __syncthreads();
-    if (tid < NPT) {
-      const int i = m * NPT + tid;
-      s_ax[tid] = b.axl[i];
-      s_ay[tid] = b.ay[i];
-      s_fx[tid] = b.fx[i];
-      s_fy[tid] = b.fy[i];
-      s_a0[tid] = b.amp[i];
-      s_a1[tid] = b.amp[npts + i];
-    }
-    __syncthreads();
-    if (!valid) continue;
-    const int w = wrap(x - wstart, b.xdim);
-    if (w >= b.wwin) continue;
-    for (int k = 0; k < NPT; ++k) {
-      if ((unsigned)(y - s_ay[k] + 2) > 4u ||
-          (unsigned)(w - s_ax[k] + 2) > 4u) {
-        continue;
+    for (int wi = 0; wi < nwin; wi += STHREADS / NPT) {
+      const int mi = wi + tid / NPT;
+      bool pred = false;
+      int i = 0, ws = 0, ax = 0, ay = 0;
+      if (mi < nwin) {
+        const int mw = s.win[mi];
+        i = mw * NPT + tid % NPT;
+        ws = wrap(b.win_lo0 + mw * b.cw, b.xdim);
+        ay = b.ay[i];
+        ax = b.axl[i];
+        // the tile's columns have window columns wl .. wl + tw - 1, taken
+        // modulo X: a superset of spread_sum's per-cell test
+        int wl = x0 - ws;
+        wl += wl < 0 ? b.xdim : 0;
+        const int wh = wl + tw - 1;
+        pred = ay + 2 >= y0 && ay - 2 <= y1 &&
+               ((ax + 2 >= wl && ax - 2 <= wh) ||
+                (ax + 2 >= wl - b.xdim && ax - 2 <= wh - b.xdim));
       }
-      const T dy = delta_1d(T(y - s_ay[k]) - s_fy[k]);
-      const T dx = delta_1d(T(w - s_ax[k]) - s_fx[k]);
-      acc0 += (dy * s_a0[k]) * dx;
-      acc1 += (dy * s_a1[k]) * dx;
+      int tot;
+      const int slot = block_ballot(pred, tid, s.cnt, tot);
+      if (n + tot > SCAP) {   // block-uniform: sum the list, empty it
+        if (valid) spread_sum(s, n, x, y, b.xdim, b.wwin, acc0, acc1);
+        n = 0;
+        __syncthreads();
+      }
+      if (pred) {
+        const int k = n + slot;
+        const T fy = b.fy[i];
+        const T fx = b.fx[i];
+        const T a0 = b.amp[i];
+        const T a1 = b.amp[npts + i];
+        s.pt[k] = make_int4(ws, ax, ay, 0);
+#pragma unroll
+        for (int o = 0; o < 5; ++o) {
+          const T dy = delta_1d(T(o - 2) - fy);
+          s.v[k][o] = dy * a0;
+          s.v[k][5 + o] = dy * a1;
+          s.v[k][10 + o] = delta_1d(T(o - 2) - fx);
+        }
+      }
+      n += tot;
+      __syncthreads();   // the entries are written
     }
   }
   if (!valid) return;
+  spread_sum(s, n, x, y, b.xdim, b.wwin, acc0, acc1);
   const long long j = (long long)y * b.xdim + x;
   b.force[j] = acc0;
   b.force[(long long)b.band * b.xdim + j] = acc1;
@@ -264,7 +408,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   const long long bplane = (long long)rows * xdim;
   const long long pts = (long long)c_num * NPT;
   const dim3 sgrid((xdim + TX - 1) / TX, (band + TY - 1) / TY);
-  const int iblocks = (int)((pts + NPT - 1) / NPT);
+  const int iblocks = (int)((pts + IPB - 1) / IPB);
   for (int s = 0; s < K; ++s) {
     a.f_in = s == 0 ? (const T*)f_ext : buf[(s - 1) % 2];
     a.in_plane = s == 0 ? ext_plane : bplane;
@@ -284,7 +428,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
     b.ay = (const int*)ay + s * pts;
     b.fy = (const T*)fy + s * pts;
     b.fluxcol = flux_x >= 0 ? (T*)colbuf + (long long)s * band : nullptr;
-    interp_kernel<T><<<iblocks, NPT, 0, st>>>(b);
+    interp_kernel<T><<<iblocks, ITHREADS, 0, st>>>(b);
     err = (int)cudaGetLastError();
     if (err) return err;
     spread_kernel<T><<<sgrid, dim3(TX, TY), 0, st>>>(b);

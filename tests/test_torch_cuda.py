@@ -19,10 +19,10 @@ Tolerances, kernel vs plain version, as rel-L2 of each output: 1e-6 in f32
 differ at f32 round-off) and 1e-12 in f64; for B5's force and flux 1e-5
 and 1e-11, since the kernel gathers the IB stencils in another order than
 the plain version's dense window products and the IB feedback carries the
-difference through K sub-steps.  B6 against B5 on the same inputs is
-held to the same gates: the tiles gather overlapping windows in lift
-order, B5 in cilium order, so cells near the periodic seam may differ at
-round-off.
+difference through K sub-steps.  B6 equals B5 on the same inputs bit for
+bit: a cell's force takes the terms of the points that reach it, and no
+cell is reached by two cilia whose lift order differs from their cilium
+order.
 """
 
 import dataclasses
@@ -439,7 +439,8 @@ def test_b6_matches_plain_version_and_b5(card, K, dtype, storage, top):
     _check_all(got, want, gates)
     whole = band_super(f_ext, force, *xs, cfg, halo, walls, "trt_split",
                        storage)
-    _check_all(got, whole, gates)
+    for name, a, b in zip(("f_band", "bhalos", "force", "flux"), got, whole):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -495,6 +496,170 @@ def test_sim_xtiled_cuda_matches_torch_backend(card, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q))
+
+
+# --- the spread's candidate list (B5, B6, B8) ------------------------------
+
+def placed_points(cfg, K, halo, dtype, device, X, Y, live, eps=0.05,
+                  seed=7):
+    """Point blocks in the band super-step's layout (us [K, 2, c, 128],
+    eps, axl, fx, ay, fy [K, c, 128]) with node k of cilium m anchored at
+    the domain cell (X[m, k], Y[m, k]) in every sub-step where live[m, k],
+    and inert (padded: anchors -20000, eps 0) elsewhere; fractions in
+    [-0.5, 0.5) and velocities seeded."""
+    rng = np.random.default_rng(seed)
+    c = cfg.c_num
+    shape = (K, c, 128)
+    wstart = (np.arange(c) * cfg.c_space - halo)[:, None]
+    axl = np.broadcast_to(np.where(live, X - wstart, -20000), shape)
+    ay = np.broadcast_to(np.where(live, Y, -20000), shape)
+    fx = np.where(live, rng.uniform(-0.5, 0.5, shape), 0.0)
+    fy = np.where(live, rng.uniform(-0.5, 0.5, shape), 0.0)
+    us = np.where(live, 0.01 * rng.standard_normal((K, 2, c, 128)), 0.0)
+    ep = np.broadcast_to(np.where(live, eps, 0.0), shape)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+            for a, dt in ((us, dtype), (ep, dtype), (axl, torch.int32),
+                          (fx, dtype), (ay, torch.int32), (fy, dtype))]
+
+
+def placement(cfg, layout):
+    """(X, Y, live) [c, 128] of a candidate-list case.  Every layout but
+    "curled" spreads each cilium's nodes over 43 consecutive columns
+    around a centre, on rows at the band's bottom and top and around a
+    row edge of the 32 x 8 blocks: some node lies on each side of every
+    block edge it crosses, within 3 cells, whatever the block's alignment.
+      edges     centres at m c_space + c_space / 2;
+      seam      cilium 0 centred on column 0 and the last on column X
+                (the periodic seam, through both wrapped windows);
+      curled    cilia 0-2 with all 128 nodes in the one block of columns
+                160-191 and rows 8-15 (384 candidates there, more than a
+                pass of the list holds); the rest inert;
+      inert     every node padded;
+      zero_eps  the edges layout with eps 0 (set by the caller): every
+                point passes and adds zero."""
+    c, cw, band = cfg.c_num, cfg.c_space, cfg.force_band
+    k = np.arange(128)
+    rows = np.array([0, 1, 2, 5, 6, 7, 8, 9, 10, band - 3, band - 2,
+                     band - 1])
+    centre = np.arange(c) * cw + cw // 2
+    if layout == "seam":
+        centre[0], centre[-1] = 0, cfg.xdim
+    X = centre[:, None] + (k % 43) - 21
+    Y = np.broadcast_to(rows[k % len(rows)], (c, 128))
+    live = np.ones((c, 128), bool)
+    if layout == "curled":
+        X = np.broadcast_to(160 + k % 32, (c, 128))
+        Y = 8 + (k // 32)[None, :] + 4 * (np.arange(c)[:, None] == 1)
+        live = np.broadcast_to(np.arange(c)[:, None] < 3, (c, 128))
+    elif layout == "inert":
+        live[:] = False
+    return X, Y, live
+
+
+def _hold_candidates(got, again, want, dtype, zero_force):
+    """The kernel against its second run (bit for bit: no atomics) and
+    against the plain version (the gates above; where the force is all
+    zero, it is zero in both)."""
+    g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
+    names = ("f_band", "bhalos", "force", "flux")
+    for name, a, b in zip(names, got, again):
+        assert torch.equal(a, b), name
+    gates = [("f_band", g), ("bhalos", g), ("force", gi), ("flux", gi)]
+    if zero_force:
+        assert not got[2].any() and not want[2].any()
+        got, want, gates = (got[:2] + got[3:], want[:2] + want[3:],
+                            gates[:2] + gates[3:])
+    else:
+        assert got[2].abs().max() > 0
+    _check_all(got, want, gates)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["edges", "seam", "curled", "inert",
+                                    "zero_eps"])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b5_candidate_list(card, layout, dtype, storage, top):
+    # points where pruning the spread's candidates could drop one: the
+    # kernel against the plain version and against itself
+    cfg = SimConfig(dtype=str(dtype).split(".")[-1], **SUPER)
+    K = 2
+    f_ext, force, _, halo = super_inputs(cfg, K, dtype, storage, card)
+    xs = placed_points(cfg, K, halo, dtype, card, *placement(cfg, layout),
+                       eps=0.0 if layout == "zero_eps" else 0.05)
+    args = (f_ext, force, *xs, cfg, halo, ref.WallSpec(top=top),
+            "trt_split", storage)
+    got, again = band_super(*args), band_super(*args)
+    want = band_super_reference(*args)
+    torch.cuda.synchronize()
+    _hold_candidates(got, again, want, dtype,
+                     layout in ("inert", "zero_eps"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,layout", [("B6", "seam"), ("B6", "curled"),
+                                           ("B8", "edges")])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b6_b8_candidate_list(card, kernel, layout, dtype, storage, top):
+    # B6 on tiles (the seam's cilia lifted into the first and last tile)
+    # and B8 in the phase-general layout (c_space 256 on four x-shards:
+    # windows c_space wider, from block column 0)
+    walls = ref.WallSpec(top=top)
+    K = 2
+    if kernel == "B6":
+        cfg = SimConfig(dtype=str(dtype).split(".")[-1], **TILED)
+        plan = xtiled_plan(cfg, K, dtype)
+        f_ext, force, _, halo = super_inputs(cfg, K, dtype, storage, card)
+        xs = placed_points(cfg, K, halo, dtype, card,
+                           *placement(cfg, layout))
+        args = (f_ext, force, *xs, cfg, halo, plan.tile_x, plan.gx, walls,
+                "trt_split", storage)
+        got, again = band_super_tiled(*args), band_super_tiled(*args)
+        want = band_super_tiled_reference(*args)
+    else:
+        cfg = SimConfig(c_num=10, c_space=256, ydim=256,
+                        dtype=str(dtype).split(".")[-1])
+        n_x = 4
+        xl = cfg.xdim // n_x
+        lay = xshard_layout(cfg, 8, K, walls, dtype, xl, n_x)
+        assert lay.phase_general
+        f, force = random_inputs(cfg, storage, dtype, card, seed=12)
+        xs = placed_points(cfg, K, lay.halo, dtype, card,
+                           *placement(cfg, layout))
+        ix = 1          # its block's edge runs through cilium 2's nodes
+        cols = torch.arange(ix * xl - lay.gx, (ix + 1) * xl + lay.gx,
+                            device=card) % cfg.xdim
+        owned = ix * xl <= cfg.flux_x < (ix + 1) * xl
+        flags = (cfg.flux_x - ix * xl + lay.gx if owned else 0, int(owned))
+        args = (flags, f[:, :cfg.force_band + 8][:, :, cols].contiguous(),
+                force[:, :, cols].contiguous(),
+                *shard_points(lay, xs, cfg, ix, xl), cfg, lay, walls,
+                "trt_split", storage)
+        got, again = band_super_xsharded(*args), band_super_xsharded(*args)
+        want = band_super_xsharded_reference(*args)
+        if not owned:   # flux: zeros in both
+            got, again, want = got[:3], again[:3], want[:3]
+    torch.cuda.synchronize()
+    _hold_candidates(got, again, want, dtype, False)
+
+
+@pytest.mark.cuda
+def test_band_super_f32_velocity_error_500_steps(card):
+    # tests/test_accuracy_horizon.py's band super-step gate on the card:
+    # 384 x 256 with 3 cilia, the cuda backend in f32 (storage auto) at
+    # temporal 4 on the band super-step, against the torch backend in f64
+    # raw single-step, 500 steps
+    cfg64 = SimConfig(c_num=3, c_space=128, ydim=256, dtype="float64",
+                      storage="raw")
+    s64 = MucociliarySim(cfg64, backend="torch", device=card)
+    u64 = s64.fields(s64.run_chunk(s64.init_state(), 500))[1]
+    ssup = MucociliarySim(cfg64.replace(dtype="float32", storage="auto"),
+                          backend="cuda", device=card, temporal=4)
+    assert ssup.resolved_config()["band_leg"] == "band_super_whole"
+    n5 = band_super.launches
+    u32 = ssup.fields(ssup.run_chunk(ssup.init_state(), 500))[1]
+    assert band_super.launches - n5 == 500 // 4
+    assert torch.isfinite(u32).all()
+    assert rel_l2(u32, u64) < 1.0e-5
 
 
 # --- B0, B7, B8 and the sharded path -----------------------------------------

@@ -7,9 +7,9 @@ Phases; any failure exits non-zero before the final line:
   1. environment: the card, torch, CUDA, nvcc, and the kernel build from
      the sources in this checkout;
   2. every hand kernel against its plain torch version on the card, at
-     the shapes the main path gives it: each grid's K, ghost pads, halo
-     and x-tiles come from the temporal plan that temporal "auto"
-     resolves to there (the whole band super-step held to the card's L2).
+     the shapes the main path gives it: each grid's K, ghost pads and halo
+     come from the temporal plan that temporal "auto" resolves to there
+     (the whole band super-step: no device holds it to a budget).
      Seeded inputs, f32 deviatoric and f64 raw, both top walls, at
      288 x 192 and 2048 x 2048; the path's own case (f32 deviatoric, top
      slip) at 8192 x 8192:
@@ -23,37 +23,42 @@ Phases; any failure exits non-zero before the final line:
           and [0,1,1] (f, f1 row, q, fluxcol: the same gates); at the
           shard width of the mesh legs of phase 5: the 8192 x 8192 (2, 2)
           per-sub-step leg's band block of x-column 1 (band + pad_b rows,
-          4,096 columns, row band-1 exposed) and the 288 x 192 (2, 1) top
-          shard's per-step block;
+          4,096 columns, row band-1 exposed; the plan held to the card's
+          L2 size) and the 288 x 192 (2, 1) top shard's per-step block;
        B4 K = 16 bulk steps at all three (f and flux: the same gates),
           and at 8192 x 8192 in f64 raw too; at 2048 x 2048 its f against
           16 launches of B3 (flags [band, 0, 1], the seam halo as the
           bottom halo row), bit for bit;
        B5 K = 16 band super-step at 2048 x 2048 (16 cilia) and 8192 x 8192
           (64 cilia), real points (f_band and seam halos as above; force
-          and flux <= 1e-5 f32, 1e-11 f64), on a plan without the L2
-          budget wherever auto takes B6;
-       B6 the x-tiled band super-step where auto takes it: 2048 x 2048 f64
+          and flux <= 1e-5 f32, 1e-11 f64);
+       B6 the x-tiled band super-step on the plan held to the card's L2
+          size as a budget, where that splits the band: 2048 x 2048 f64
           (tile 256, gx 512) and 8192 x 8192 f32 (tile 1,024, gx 512), the
           same gates, and against B5 on the same inputs, bit for bit;
-       B0 on the slabs the mesh legs give it, read in place, each with
-          its own force slab (the same gates): the 8192 x 8192 (2, 2)
-          band block's seam column, the 288 x 192 (2, 1) shard's edge row,
-          and a (2, 2) shard's edge column and row at 2048 x 2048;
+       B0 one call on one exchange, every slab read in place, each with
+          its own force slab (the same gates; f32 and f64): the 288 x 192
+          (2, 1) mesh's 4 edge rows and the 2048 x 2048 (2, 2) mesh's 16
+          edge rows and columns (per-step exchanges), and the 8192 x 8192
+          (2, 2) per-sub-step leg's 4 seam columns of the x-columns' band
+          blocks (band + pad_b rows), each table bit for bit against the
+          same slabs one call each;
        B7 K = 16 ghost steps of (2, 2) shards at 2048 x 2048, x-extended
           by 128 columns: the inject shard that owns the flux column and
           the top shard (its rows above the seam and its flux: the same
           gates); the inject shard also at 8192 x 8192;
        B8 the x-sharded band super-step of both x-shards of the (2, 2)
-          mesh at 2048 x 2048 (xl 1,024, gx 512, 14 point blocks), real
-          points (B5's gates);
+          mesh at 2048 x 2048 (xl 1,024, gx 512, 14 point blocks), and of
+          x-shard 1 at 8192 x 8192 (xl 4,096: the 5,120-column block),
+          real points (B5's gates);
      then each kernel's time at 2048 x 2048 f32 beside its plain version
      (CUDA events after a spin kernel, plain/kernel/kernel/plain), its
-     bytes and its bound; B4, B5, B6, B7 and B0 (the seam column) also at
-     8192 x 8192 f32, B4, B5, B6 and B7 at 2048 x 2048 f64 (B5 and B6
-     both against B5's bound there, the same function), B4 at 8192 x 8192
-     f64; for B4 and B7 the K-step driver's HBM passes per call, its
-     redundancy and the arithmetic bound with it;
+     bytes and its bound; B4-B8 also at 8192 x 8192 f32, B4-B7 at 2048 x
+     2048 f64 (B5 and B6 both against B5's bound there, the same
+     function), B4 at 8192 x 8192 f64; for B4 and B7 the K-step driver's
+     HBM passes per call, its redundancy and the arithmetic bound with
+     it; B0's one call against the same 16 slabs one launch each, in
+     turns, beside the launch floor (an empty kernel, back to back);
   3. the main path: the port's CLI ``1 6 48 1.0 1.0 5 0.02 4 0 0 --device
      cuda``, 2,000 f32 steps, twice: with --temporal 1 (one B2 launch per
      step) and with the default --temporal auto (K = 16, per-sub-step leg:
@@ -70,19 +75,25 @@ Phases; any failure exits non-zero before the final line:
      x 256 (3 cilia), 500 steps on backend "cuda" in f32 at temporal 4
      (band_super_whole) against backend "torch" in f64 raw, velocity
      rel-L2 < 1e-5; then 32 steps at 8192 x 8192 (64 cilia),
-     single-step, temporal "auto" (K = 16, band_super_xtiled: 8 B6 tile
-     launches and one B4 launch per 16 steps) and the whole leg (a plan
-     without the L2 budget: B5), each twice in turns, with peak memory;
-     velocity rel-L2 of the x-tiled run against single-step <= 1e-5, and
-     the two legs' ms/step side by side;
-  5. the mesh on the card, every shard on the one card (f32, temporal
-     "auto" through the runner's mesh resolution): 2048 x 2048 on (2, 2)
+     single-step, temporal "auto" (K = 16, band_super_whole: one B5 and
+     one B4 launch per 16 steps) and the x-tiled leg (the plan held to the
+     card's L2 size: 8 B6 tile launches and one B4 launch per 16 steps),
+     each twice in turns, with peak memory; velocity rel-L2 of the auto
+     run against single-step <= 1e-5, the x-tiled run equal to it bit for
+     bit, and the two legs' ms/step side by side;
+  5. the mesh on the card, every shard on the one card (f32, through the
+     runner's mesh resolution): at temporal "auto", 2048 x 2048 on (2, 2)
      (B8 + B7) and (2, 1) (B5 + B7), 64 steps, and 8192 x 8192 on (2, 2)
-     (the L2 rule's per_substep_tiled leg: B3 + B0 + B7), 32 steps, each
-     against the single-device auto run: velocity rel-L2 and flux rel
-     <= 1e-5, exact launch counts, ms/step, MLUPS and peak memory; then the
-     CLI with --mesh 2,1, 2,000 steps at 288 x 192: flux within 2e-5 of
-     the f64 golden and within 1e-5 of phase 3's unsharded auto run;
+     (B8 on the 5,120-column block + B7), 32 steps, and again on the plan
+     held to the card's L2 size (per_substep_tiled: B3 per x-column and
+     one B0 call per sub-step, the torch IB, B7), 32 steps; at temporal 1,
+     2048 x 2048 on (2, 2), 64 steps (B3 per shard and one B0 call per
+     step);
+     each against the single-device run at the same temporal: velocity
+     rel-L2 and flux rel <= 1e-5, exact launch counts, ms/step, MLUPS and
+     peak memory; then the CLI with --mesh 2,1, 2,000 steps at 288 x 192
+     (one B0 call per per-step exchange): flux within 2e-5 of the f64
+     golden and within 1e-5 of phase 3's unsharded auto run;
   6. the quirk path: the CLI of phase 3 with --ib-x-edge reference, with
      --temporal 1 (one B2h launch per step), with auto (K = 16, the
      per-sub-step leg with the stencil IB: 1,984 B3, 124 B4 and 16 B2h
@@ -104,7 +115,9 @@ Phases; any failure exits non-zero before the final line:
      versions, bit for bit, on seeded data that differs from element to
      element (P2 and P3 into outputs filled with NaN; the plain fma link
      rounds once, as fmaf does), then probe_bw (3 reps) and probe_vpu,
-     their GB/s and TFLOP/s and shares of the data sheet's peaks.
+     their GB/s and TFLOP/s and shares of the data sheet's peaks, P3's
+     time at 32 KiB depth 2 over copy_'s from the same run, and P3's rate
+     at each run length a block streams.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -133,16 +146,23 @@ BIG_GRID = ("8192x8192", (64, 128, 8192), 32)
 BIG_TILE = (1024, 512)   # (tile_x, gx) of auto's x-tiled leg there
 MAIN_ARGV = ["1", "6", "48", "1.0", "1.0", "5", "0.02", "4", "0", "0"]
 MESH = (2, 2)     # the mesh of phase 2's B0, B7 and B8 cases
-# phase 5: (grid, mesh, steps, band leg, launches per super-step by
-# kernel: per x-column for the band leg, per shard for B7)
+# phase 5: (grid, mesh, temporal, the plan held to the card's L2 size,
+# steps, band leg, launches per exchange (a super-step, or a step at
+# temporal 1) by kernel: per x-column for the band leg and the per-sub-step
+# B3, per shard for B7 and the per-step B3, one B0 call for every slab of
+# an exchange)
 MESH_RUNS = (
-    ("2048x2048", (2, 2), 64, "band_super_xsharded",
+    ("2048x2048", (2, 2), "auto", False, 64, "band_super_xsharded",
      {"B8 band_super_xsharded": 2, "B7 ghost_temporal": 4}),
-    ("2048x2048", (2, 1), 64, "band_super_whole",
+    ("2048x2048", (2, 1), "auto", False, 64, "band_super_whole",
      {"B5 band_super": 1, "B7 ghost_temporal": 2}),
-    ("8192x8192", (2, 2), 32, "per_substep_tiled",
-     {"B3 sharded_fused_step": 2 * K, "B0 collide_rows": 4 * K,
+    ("8192x8192", (2, 2), "auto", False, 32, "band_super_xsharded",
+     {"B8 band_super_xsharded": 2, "B7 ghost_temporal": 4}),
+    ("8192x8192", (2, 2), "auto", True, 32, "per_substep_tiled",
+     {"B3 sharded_fused_step": 2 * K, "B0 collide_slabs": K,
       "B7 ghost_temporal": 4}),
+    ("2048x2048", (2, 2), 1, False, 64, "sharded_per_step",
+     {"B3 sharded_fused_step": 4, "B0 collide_slabs": 1}),
 )
 FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
 
@@ -182,7 +202,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                       "cuda_iblb_11_tpu/ops/pallas_step.py:1496"),
     "B6 band_super_tiled": ("cuda_iblb_11_tpu_torch/csrc/band_super.cu",
                             "cuda_iblb_11_tpu/ops/pallas_step.py:1582"),
-    "B0 collide_rows": ("cuda_iblb_11_tpu_torch/csrc/collide_rows.cu",
+    "B0 collide_slabs": ("cuda_iblb_11_tpu_torch/csrc/collide_rows.cu",
                         "cuda_iblb_11_tpu/ops/pallas_step.py:775"),
     "B7 ghost_temporal": ("cuda_iblb_11_tpu_torch/csrc/ghost_temporal.cu",
                           "cuda_iblb_11_tpu/ops/pallas_step.py:2189"),
@@ -222,7 +242,7 @@ def wrappers():
         band_super_xsharded,
     )
     from cuda_iblb_11_tpu_torch.ops import probes
-    from cuda_iblb_11_tpu_torch.ops.collide_rows import collide_rows
+    from cuda_iblb_11_tpu_torch.ops.collide_rows import collide_slabs
     from cuda_iblb_11_tpu_torch.ops.collide_stream import collide_stream
     from cuda_iblb_11_tpu_torch.ops.fused_step import (
         fused_substep, sharded_fused_substep,
@@ -232,7 +252,7 @@ def wrappers():
 
     return dict(zip(KERNELS, (fused_substep, sharded_fused_substep,
                               temporal_bulk, band_super, band_super_tiled,
-                              collide_rows, ghost_temporal,
+                              collide_slabs, ghost_temporal,
                               band_super_xsharded, collide_stream,
                               probes.probe_chain, probes.probe_copy,
                               probes.probe_ring_copy)))
@@ -507,33 +527,48 @@ def case_b3_mesh(cfg, f, force, walls, storage, mesh, shard, rows=None):
         xl * (COLLIDE_FORCED * forced + COLLIDE_FREE * (n - forced)))
 
 
-def case_b0(cfg, f, force, storage, mesh, rows, edge):
-    """An edge line of shard (0, 0) of `mesh`, read in place from a
-    contiguous copy of the shard's first `rows` rows (the whole shard on
-    the per-step leg, the band block on the per-sub-step one): its top row
-    or its last column, with the force of those cells (zero above the band)
-    in a tensor of its own, as parallel/sharded.py builds them."""
+def case_b0(cfg, f, force, storage, mesh, rows=None):
+    """One exchange of `mesh`, read in place from contiguous copies of the
+    shards' blocks, each slab with the force of its cells (zero above the
+    band) in a tensor of its own, as parallel/sharded.py builds them: one
+    B0 call.  Without `rows`, the per-step leg's: every shard's edge lines
+    (bottom and top rows, and on x-sharded meshes the west and east
+    columns); with it, the per-sub-step leg's: both seam columns of every
+    x-column's band block (global rows [0, rows)).  ``per_slab`` is the
+    same table as single-slab calls, one launch each."""
     import torch
 
     from cuda_iblb_11_tpu_torch.ops.collide_rows import (
-        collide_rows, collide_rows_reference,
+        collide_rows, collide_slabs, collide_slabs_reference,
     )
 
-    yl, xl, band = cfg.ydim // mesh[0], cfg.xdim // mesh[1], cfg.force_band
-    f_loc = f[:, :yl, :xl].contiguous()[:, :rows]
-    sl = (slice(None), slice(None), slice(xl - 1, xl)) if edge == "column" \
-        else (slice(None), slice(rows - 1, rows), slice(None))
-    slab = f_loc[sl]
-    fo = torch.zeros((2, rows, xl), dtype=f.dtype, device=f.device)
-    nb = min(band, rows)
-    fo[:, :nb] = force[:, :nb, :xl]
-    fslab = fo[sl].contiguous()
-    cells = slab.shape[1] * slab.shape[2]
-    return KernelCase(
-        lambda: (collide_rows(slab, fslab, cfg, "trt_split", storage),),
-        lambda: (collide_rows_reference(slab, fslab, cfg, "trt_split",
-                                        storage),),
-        ("f1",), f.element_size() * 20 * cells, COLLIDE_FORCED * cells)
+    n_y, n_x = mesh
+    yl, xl, band = cfg.ydim // n_y, cfg.xdim // n_x, cfg.force_band
+    n = yl if rows is None else rows
+    cuts = [] if rows is not None else [(slice(None), slice(0, 1)),
+                                        (slice(None), slice(yl - 1, yl))]
+    if n_x > 1:
+        cuts += [(slice(None), slice(None), slice(0, 1)),
+                 (slice(None), slice(None), slice(xl - 1, xl))]
+    slabs = []
+    for iy in range(n_y if rows is None else 1):
+        for ix in range(n_x):
+            y0, xs = iy * yl, slice(ix * xl, (ix + 1) * xl)
+            blk = f[:, y0:y0 + max(n, yl), xs].contiguous()[:, :n]
+            fo = torch.zeros((2, n, xl), dtype=f.dtype, device=f.device)
+            nb = min(max(band - y0, 0), n)
+            fo[:, :nb] = force[:, y0:y0 + nb, xs]
+            slabs += [(blk[c], fo[c].contiguous()) for c in cuts]
+    cells = sum(a.shape[1] * a.shape[2] for a, _ in slabs)
+    kc = KernelCase(
+        lambda: tuple(collide_slabs(slabs, cfg, "trt_split", storage)),
+        lambda: tuple(collide_slabs_reference(slabs, cfg, "trt_split",
+                                              storage)),
+        tuple(f"f1[{i}]" for i in range(len(slabs))),
+        f.element_size() * 20 * cells, COLLIDE_FORCED * cells)
+    kc.per_slab = lambda: tuple(collide_rows(a, b, cfg, "trt_split", storage)
+                                for a, b in slabs)
+    return kc
 
 
 def case_b7(cfg, f, walls, storage, iy, ix, K):
@@ -623,13 +658,19 @@ def phase_kernels(record):
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
     from cuda_iblb_11_tpu_torch.ops import reference as ref
+    from cuda_iblb_11_tpu_torch.ops.probes import device_ms, launch_floor_ms
     from cuda_iblb_11_tpu_torch.ops.temporal import (
-        l2_budget, plan_sharded, plan_temporal,
+        plan_sharded, plan_temporal,
     )
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
 
     print("== phase 2: every kernel vs its plain version on the card",
           flush=True)
     dev = torch.device(DEVICE)
+    # B6's plans and the (2, 2) mesh's per-sub-step leg: the card's L2
+    # size as a footprint budget (the simulations plan none; this builds
+    # the legs that split the band)
+    l2 = l2_bytes(dev)
     big_name, big_dims, _ = BIG_GRID
     # grid -> (config, input cases); the big grid takes its path's case
     grids = {name: (SimConfig(c_num=c, c_space=s, ydim=y), CASES)
@@ -638,10 +679,11 @@ def phase_kernels(record):
     results = []
     timed = {}   # the first (main path) case of each kernel at the timing
     worst = {}   # grid in f32; each kernel's largest max |err| over all
-    timed_big = {}   # B5 and B6 on the big grid's path case
-    timed_f64 = {}   # and at the timing grid in f64, where auto takes B6
+    timed_big = {}   # B4-B8 on the big grid's path case
+    timed_f64 = {}   # and B4-B7 at the timing grid in f64
     b6_vs_b5 = []
     b4_vs_b3 = []
+    b0_vs_single = []
 
     def run(kname, gname, dt, storage, top, kc, gates, extra=""):
         got = kc.kern()
@@ -655,8 +697,10 @@ def phase_kernels(record):
         results.append(dict(kernel=kname, grid=gname, dtype=dt,
                             storage=storage, top=top, case=extra,
                             rel_l2=errs, max_abs_err=err))
+        shown = errs if len(errs) <= 4 else {"max over slabs":
+                                             max(errs.values())}
         print(f"  {kname} {gname} {dt} {storage} top={top} {extra}: "
-              + " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+              + " ".join(f"{n}={e:.3e}" for n, e in shown.items())
               + f"  max|err|={err:.3e}", flush=True)
         for n, e in errs.items():
             gate = gates.get(n, gates["*"])
@@ -667,6 +711,27 @@ def phase_kernels(record):
             timed.setdefault(kname, kc)
         if gname == TIMING_GRID and dt == "float64" and kname in KSTEP:
             timed_f64.setdefault(kname, kc)
+        return got
+
+    def b0_table(gname, dt, storage, top, mesh, g, rows=None):
+        """B0 on one exchange's table, against its plain version, and
+        bit for bit against the same slabs one call each."""
+        kc = case_b0(cfg, f, force, storage, mesh, rows)
+        leg = ("per-step exchange" if rows is None
+               else f"per-sub-step seam columns, {rows} rows")
+        got = run("B0 collide_slabs", gname, dt, storage, top, kc, g,
+                  f"{mesh} {leg}, {len(kc.names)} slabs")
+        one = kc.per_slab()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, one))
+        b0_vs_single.append(dict(grid=gname, dtype=dt, top=top,
+                                 mesh=list(mesh), slabs=len(one),
+                                 bit_identical=same))
+        print(f"  B0 table vs {len(one)} single-slab calls {gname} {dt} "
+              f"top={top}: bit-identical {same}", flush=True)
+        check(same, f"B0 table {gname} {dt} {top}: not the single-slab "
+                    "calls' f1 bit for bit")
+        return kc
 
     for gname, (cfg, cases) in grids.items():
         for k, (dt, storage, top) in enumerate(cases):
@@ -677,8 +742,12 @@ def phase_kernels(record):
                                   dtype=dtype, temporal="auto").plan
             check(plan is not None and plan.K == K,
                   f"{gname} {dt}: temporal auto plan {plan}")
+            check((plan.band_leg == "per_substep") == (gname == "288x192")
+                  and plan.band_leg != "band_super_xtiled",
+                  f"{gname} {dt}: auto took {plan.band_leg}")
             f, force = random_inputs(cfg, storage, dtype, dev, seed=k)
             g = {"*": GATE[dt]}
+            gi = {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]}
             run("B2 fused_step", gname, dt, storage, top,
                 case_b2(cfg, f, force, walls, storage), g)
             # B2h at the quirk step's band and the channel's whole height;
@@ -695,34 +764,26 @@ def phase_kernels(record):
                         case_b3(cfg, plan, f, force, walls, storage, flags,
                                 th), g, f"flags={list(flags)} pad={plan.pad}")
             else:
-                # the single-device path takes B6 here, but the (2, 2)
-                # mesh's per-sub-step leg (phase 5) runs B3 at the x-shard
-                # width on each x-column's band block, and B0 on its seam
-                # columns
-                sp = plan_sharded(cfg, K, *MESH, walls, dtype,
-                                  budget=l2_budget(dev))
+                # auto's (2, 2) mesh takes B8 here; on the plan held to the
+                # card's L2 size (phase 5) it takes the per-sub-step leg:
+                # B3 at the x-shard width on each x-column's band block,
+                # and B0 on every x-column's seam columns in one call
+                sp = plan_sharded(cfg, K, *MESH, walls, dtype, budget=l2)
                 check(sp.band_leg == "per_substep_tiled",
-                      f"{gname} {MESH} plan {sp}")
+                      f"{gname} {MESH} budgeted plan {sp}")
                 rows = cfg.force_band + sp.pad_b
                 run("B3 sharded_fused_step", gname, dt, storage, top,
                     case_b3_mesh(cfg, f, force, walls, storage, MESH, (0, 1),
                                  rows), g,
                     f"{MESH} x-column 1 band block, pad_b={sp.pad_b}")
-                b0 = case_b0(cfg, f, force, storage, MESH, rows, "column")
-                run("B0 collide_rows", gname, dt, storage, top, b0, g,
-                    f"{MESH} band block seam column")
-                timed_big["B0 collide_rows"] = b0
-                del b0
+                b0_table(gname, dt, storage, top, MESH, g, rows)
             if gname == "288x192":
                 # the per-step leg of the CLI's --mesh 2,1 (phase 5): the
-                # top shard's block and shard (0, 0)'s top edge row
+                # top shard's block and one exchange's edge rows
                 run("B3 sharded_fused_step", gname, dt, storage, top,
                     case_b3_mesh(cfg, f, force, walls, storage, (2, 1),
                                  (1, 0)), g, "(2, 1) top shard, per step")
-                run("B0 collide_rows", gname, dt, storage, top,
-                    case_b0(cfg, f, force, storage, (2, 1),
-                            cfg.ydim // 2, "row"), g,
-                    "(2, 1) shard edge row")
+                b0_table(gname, dt, storage, top, (2, 1), g)
             b4 = case_b4(cfg, plan, f, walls, storage)
             run("B4 temporal_bulk", gname, dt, storage, top, b4, g,
                 f"K={plan.K}")
@@ -731,61 +792,54 @@ def phase_kernels(record):
             if gname == big_name:
                 timed_big["B4 temporal_bulk"] = b4
             del b4
-            if plan.pad_s is not None:   # a band super-step leg
-                # B5 on a plan without the L2 budget wherever auto takes
-                # B6: the kernel checks do not depend on the plan's leg
-                whole = plan_temporal(cfg, plan.K, walls, dtype)
-                check(whole.band_leg == "band_super_whole"
-                      and whole.pad_s == plan.pad_s
-                      and whole.halo == plan.halo,
-                      f"{gname} {dt}: whole-leg plan {whole}")
+            if plan.pad_s is not None:   # auto's whole band super-step
                 xs = super_points(cfg, plan, dtype)
-                gi = {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]}
-                b5 = case_b5(cfg, whole, f, force, walls, storage, xs)
-                run("B5 band_super", gname, dt, storage, top, b5, gi,
-                    f"K={plan.K} pad_s={plan.pad_s} halo={plan.halo}")
-            if plan.band_leg == "band_super_xtiled":
-                b6 = case_b6(cfg, plan, f, force, walls, storage, xs)
-                run("B6 band_super_tiled", gname, dt, storage, top, b6, gi,
-                    f"K={plan.K} tile={plan.tile_x} gx={plan.gx}")
-                got6, got5 = b6.kern(), b5.kern()
-                torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(got6, got5))
-                errs = {n: rel_l2(a, b)
-                        for n, a, b in zip(b6.names, got6, got5)}
-                b6_vs_b5.append(dict(grid=gname, dtype=dt, storage=storage,
-                                     top=top, bit_identical=same,
-                                     rel_l2=errs,
-                                     max_abs=max_abs(got6, got5)))
-                print(f"  B6 vs B5 {gname} {dt} top={top}: bit-identical "
-                      f"{same}; " + " ".join(f"{n}={e:.3e}"
-                                             for n, e in errs.items()),
-                      flush=True)
-                check(same, f"B6 vs B5 {gname} {dt} {top}: not bit for "
-                            f"bit, rel-L2 {errs}")
-                if gname == big_name:
-                    timed_big.update({"B5 band_super": b5,
-                                      "B6 band_super_tiled": b6})
-                elif gname == TIMING_GRID and "B5 band_super" not in timed_f64:
-                    timed_f64.update({"B5 band_super": b5,
-                                      "B6 band_super_tiled": b6})
-                del b6, got6, got5
-            if plan.pad_s is not None:
-                del b5, xs
+                b5 = case_b5(cfg, plan, f, force, walls, storage, xs)
+                got5 = run("B5 band_super", gname, dt, storage, top, b5, gi,
+                           f"K={plan.K} pad_s={plan.pad_s} "
+                           f"halo={plan.halo}")
+                # B6 on the plan held to the card's L2 size, where that
+                # splits the band (2048^2 f64, 8192^2 f32)
+                xt = plan_temporal(cfg, plan.K, walls, dtype, budget=l2)
+                if xt.band_leg == "band_super_xtiled":
+                    b6 = case_b6(cfg, xt, f, force, walls, storage, xs)
+                    got6 = run("B6 band_super_tiled", gname, dt, storage,
+                               top, b6, gi, f"K={xt.K} tile={xt.tile_x} "
+                               f"gx={xt.gx} (budget {l2} B)")
+                    same = all(torch.equal(a, b) for a, b in zip(got6, got5))
+                    errs = {n: rel_l2(a, b)
+                            for n, a, b in zip(b6.names, got6, got5)}
+                    b6_vs_b5.append(dict(grid=gname, dtype=dt,
+                                         storage=storage, top=top,
+                                         bit_identical=same, rel_l2=errs,
+                                         max_abs=max_abs(got6, got5)))
+                    print(f"  B6 vs B5 {gname} {dt} top={top}: "
+                          f"bit-identical {same}; " + " ".join(
+                              f"{n}={e:.3e}" for n, e in errs.items()),
+                          flush=True)
+                    check(same, f"B6 vs B5 {gname} {dt} {top}: not bit "
+                                f"for bit, rel-L2 {errs}")
+                    if gname == big_name:
+                        timed_big.update({"B5 band_super": b5,
+                                          "B6 band_super_tiled": b6})
+                    elif "B5 band_super" not in timed_f64:
+                        timed_f64.update({"B5 band_super": b5,
+                                          "B6 band_super_tiled": b6})
+                    del b6, got6
+                del b5, got5, xs
             # the sharded path's kernels on (2, 2) shards: at 2048^2 every
-            # case, at 8192^2 B7 on its path's case
+            # case (B0 on the per-step exchange, B8 on both x-shards, B7),
+            # at 8192^2 B8 and B7 on its path's case
             if gname == TIMING_GRID:
-                for edge in ("column", "row"):
-                    run("B0 collide_rows", gname, dt, storage, top,
-                        case_b0(cfg, f, force, storage, MESH,
-                                cfg.ydim // MESH[0], edge), g,
-                        f"{MESH} shard edge {edge}")
-                gi = {"force": GATE_IB[dt], "flux": GATE_IB[dt], "*": g["*"]}
-                for ix in (1, 0):    # the flux column's shard first
-                    run("B8 band_super_xsharded", gname, dt, storage, top,
-                        case_b8(cfg, f, force, walls, storage, ix, K,
-                                dtype), gi, f"{MESH} x-shard {ix}, K={K}")
+                b0_table(gname, dt, storage, top, MESH, g)
             if gname in (TIMING_GRID, big_name):
+                for ix in (1, 0) if gname == TIMING_GRID else (1,):
+                    b8 = case_b8(cfg, f, force, walls, storage, ix, K, dtype)
+                    run("B8 band_super_xsharded", gname, dt, storage, top,
+                        b8, gi, f"{MESH} x-shard {ix}, K={K}")
+                if gname == big_name:
+                    timed_big["B8 band_super_xsharded"] = b8
+                del b8
                 for iy, ix in ((0, 1), (1, 0)) if gname == TIMING_GRID \
                         else ((0, 1),):
                     b7 = case_b7(cfg, f, walls, storage, iy, ix, K)
@@ -798,20 +852,25 @@ def phase_kernels(record):
             torch.cuda.empty_cache()
     check(set(worst) == set(KERNELS) - set(PROBES),
           f"kernels held: {sorted(worst)}")
-    check(len(timed_big) == 5 and len(timed_f64) == 4,
-          "B4, B5, B6, B7 and B0 were not held at 8192^2 f32, B4, B5, B6 "
-          "and B7 at 2048^2 f64")
+    check(set(timed_big) == {"B4 temporal_bulk", "B5 band_super",
+                             "B6 band_super_tiled", "B7 ghost_temporal",
+                             "B8 band_super_xsharded"}
+          and len(timed_f64) == 4,
+          "B4-B8 were not held at 8192^2 f32, B4-B7 at 2048^2 f64")
+    check(len(b6_vs_b5) == 3, f"B6 cases (2048^2 f64 both tops, 8192^2 "
+                              f"f32): {len(b6_vs_b5)}")
     check(len(b4_vs_b3) == len(CASES) and all(
         r["bit_identical"] for r in b4_vs_b3),
         f"B4 against K launches of B3: {b4_vs_b3}")
     record["kernel_vs_plain"] = results
     record["b6_vs_b5"] = b6_vs_b5
     record["b4_vs_k_launches_of_b3"] = b4_vs_b3
+    record["b0_table_vs_single_slab_calls"] = b0_vs_single
 
     # times at 2048 x 2048, f32 deviatoric, slip (the first case's inputs;
-    # B3 with the band leg's flags [0, 1, 0]); B5 and B6 also at the big
-    # grid's path case and at 2048 x 2048 f64 raw slip, where each plain
-    # version takes a second or two
+    # B3 with the band leg's flags [0, 1, 0]; B0 on the (2, 2) exchange);
+    # B4-B8 also at the big grid's path case and B4-B7 at 2048 x 2048 f64
+    # raw slip, where each plain version takes a second or two
     f32 = f"{TIMING_GRID} f32 deviatoric"
     slow = ("B4 temporal_bulk", "B7 ghost_temporal",
             "B8 band_super_xsharded")
@@ -824,6 +883,23 @@ def phase_kernels(record):
     timings_f64 = {kname: time_case(kname, kc, f"{TIMING_GRID} f64 raw", 10,
                                     1, worst, F64_FLOP_S)
                    for kname, kc in timed_f64.items()}
+    # B0's one call against the same slabs one launch each, in turns, and
+    # the launch floor beside them; 50 calls of 16 launches stay within the
+    # launches the card queues behind the timer's spin kernel
+    b0 = timed["B0 collide_slabs"]
+    t = [device_ms(b0.kern, 50), device_ms(b0.per_slab, 50),
+         device_ms(b0.per_slab, 50), device_ms(b0.kern, 50)]
+    floor = [launch_floor_ms(), launch_floor_ms()]
+    n_slabs = len(b0.names)
+    timings["B0 collide_slabs"].update(
+        per_slab_calls_ms=(t[1] + t[2]) / 2, per_slab_calls_ms_runs=t[1:3],
+        table_ms_runs_beside=[t[0], t[3]], slabs=n_slabs,
+        launch_floor_ms=sum(floor) / 2, launch_floor_ms_runs=floor)
+    print(f"  B0 {f32} exchange of {n_slabs} slabs: one call "
+          f"{t[0]:.4f}, {t[3]:.4f} ms; {n_slabs} single-slab calls "
+          f"{t[1]:.4f}, {t[2]:.4f} ms; launch floor (an empty kernel, back "
+          f"to back) {floor[0]:.4f}, {floor[1]:.4f} ms; byte bound "
+          f"{timings['B0 collide_slabs']['bound_ms']:.7f} ms", flush=True)
     timed_big.clear()
     torch.cuda.empty_cache()
     # B4 at 8192^2 in f64, its path's case in f64 raw slip, alone on the
@@ -843,10 +919,9 @@ def phase_kernels(record):
     record["kernel_timing_8192"] = timings_big
     record["kernel_timing_2048_f64"] = timings_f64
     record["kernel_timing_8192_f64"] = {"B4 temporal_bulk": timing_b4_big_f64}
-    # each kernel's time at the shapes of its main path: B6's is 8192^2,
-    # B0's the 8192^2 (2, 2) mesh's seam column
-    for kname in ("B6 band_super_tiled", "B0 collide_rows"):
-        timings[kname] = timings_big[kname]
+    # each kernel's time at the shapes of its main path: B6's is 8192^2
+    # (on the budgeted plan)
+    timings["B6 band_super_tiled"] = timings_big["B6 band_super_tiled"]
     return timings
 
 
@@ -1061,6 +1136,7 @@ def phase_real_size(record):
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
     from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
 
     print("== phase 4: real size on the card", flush=True)
     steps = REAL_SIZE_STEPS
@@ -1140,32 +1216,34 @@ def phase_real_size(record):
 
     name, (c, s, y), n = BIG_GRID
     cfg = SimConfig(c_num=c, c_space=s, ydim=y)
+    l2 = l2_bytes(DEVICE)
     sims = {}
-    for label in ("temporal 1", "temporal auto", "whole leg"):
+    for label in ("temporal 1", "temporal auto", "x-tiled leg"):
         sim = MucociliarySim(cfg, backend="cuda", device=DEVICE,
                              temporal=1 if label == "temporal 1" else "auto")
         if label == "temporal auto":
+            check((sim.plan.K, sim.plan.band_leg) == (K, "band_super_whole"),
+                  f"{name} auto resolved {sim.plan}")
+        elif label == "x-tiled leg":
+            # the same K-step path on the plan held to the card's L2 size
+            # as a budget
+            sim.plan = plan_temporal(cfg, K, sim.walls, sim.dtype, budget=l2)
             p = sim.plan
-            check((p.K, p.band_leg, p.tile_x, p.gx)
-                  == (K, "band_super_xtiled", *BIG_TILE),
-                  f"{name} auto resolved {p}")
-        elif label == "whole leg":
-            # the same K-step path on a plan without the L2 budget
-            sim.plan = plan_temporal(cfg, K, sim.walls, sim.dtype)
-            check(sim.plan.band_leg == "band_super_whole",
-                  f"{name} whole-leg plan {sim.plan}")
+            check((p.band_leg, p.tile_x, p.gx) == ("band_super_xtiled",
+                                                   *BIG_TILE),
+                  f"{name} x-tiled plan {p}")
         sim.run_chunk(sim.init_state(), max(2, sim.temporal))
         sims[label] = sim
     zero = dict.fromkeys(KERNELS, 0)
     n_super = n // K
     want = {"temporal 1": {**zero, "B2 fused_step": n},
             "temporal auto": {**zero, "B4 temporal_bulk": n_super,
-                              "B6 band_super_tiled": n_super * (
-                                  cfg.xdim // BIG_TILE[0])},
-            "whole leg": {**zero, "B4 temporal_bulk": n_super,
-                          "B5 band_super": n_super}}
-    # each leg twice, in turns (single, auto, whole, whole, auto, single):
-    # one 32-step run is short enough for a host hiccup to show
+                              "B5 band_super": n_super},
+            "x-tiled leg": {**zero, "B4 temporal_bulk": n_super,
+                            "B6 band_super_tiled": n_super * (
+                                cfg.xdim // BIG_TILE[0])}}
+    # each leg twice, in turns (single, auto, x-tiled, x-tiled, auto,
+    # single): one 32-step run is short enough for a host hiccup to show
     us, launched = {}, {}
     for label in list(sims) + list(sims)[::-1]:
         sim = sims[label]
@@ -1187,53 +1265,70 @@ def phase_real_size(record):
         del st
     del sims
     errs = {f"{a} vs {b}": rel_l2(us[a], us[b]) for a, b in (
-        ("temporal auto", "temporal 1"), ("whole leg", "temporal 1"),
-        ("temporal auto", "whole leg"))}
+        ("temporal auto", "temporal 1"), ("x-tiled leg", "temporal 1"),
+        ("x-tiled leg", "temporal auto"))}
+    same = torch.equal(us["x-tiled leg"], us["temporal auto"])
     print(f"  {name} velocity rel-L2 after {n} steps: "
-          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()), flush=True)
-    rows.append(dict(grid=name, velocity_rel_l2=errs))
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + f"; x-tiled leg = auto bit for bit: {same}", flush=True)
+    rows.append(dict(grid=name, velocity_rel_l2=errs,
+                     xtiled_equals_auto_bit_for_bit=same))
     err = errs["temporal auto vs temporal 1"]
-    check(err <= 1e-5, f"{name}: x-tiled vs single velocity rel-L2 {err}")
-    # the L2 rule's two legs side by side: the x-tiled one it takes (B6)
-    # and the whole one over the L2 (B5), each turn's ms/step
+    check(err <= 1e-5, f"{name}: auto vs single velocity rel-L2 {err}")
+    check(same, f"{name}: the x-tiled leg (B6) is not the whole leg (B5) "
+                "bit for bit")
+    # the two legs side by side: the whole one auto takes (B5) and the
+    # x-tiled one of the budgeted plan (B6), each turn's ms/step
     legs = {label: [r["ms_per_step"] for r in rows
                     if r.get("grid") == name and r.get("run") == label]
-            for label in ("temporal auto", "whole leg")}
-    print(f"  {name} L2 rule's legs, ms/step in turns: x-tiled (taken) "
+            for label in ("temporal auto", "x-tiled leg")}
+    print(f"  {name} band legs, ms/step in turns: whole (auto) "
           + ", ".join(f"{v:.4f}" for v in legs["temporal auto"])
-          + "; whole " + ", ".join(f"{v:.4f}" for v in legs["whole leg"]),
-          flush=True)
-    rows.append(dict(grid=name, l2_rule_legs_ms_per_step=legs))
+          + "; x-tiled (budgeted) "
+          + ", ".join(f"{v:.4f}" for v in legs["x-tiled leg"]), flush=True)
+    rows.append(dict(grid=name, band_legs_ms_per_step=legs))
     record["real_size"] = rows
-    return temporal_launches, launched["temporal auto"]
+    return temporal_launches, launched["x-tiled leg"]
 
 
 # --- phase 5: the mesh on the card --------------------------------------
 
 def phase_mesh(record, q_auto):
-    """Each MESH_RUNS run through the runner's mesh resolution (temporal
-    "auto"), every shard on the one card, against the single-device auto
-    run; then the CLI with --mesh 2,1.  Returns each run's launches."""
+    """Each MESH_RUNS run through the runner's mesh resolution (at its
+    temporal), every shard on the one card, against the single-device run
+    at the same temporal; then the CLI with --mesh 2,1.  Returns each
+    run's launches."""
     import numpy as np
     import torch
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
+    from cuda_iblb_11_tpu_torch.ops.temporal import plan_sharded
     from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
 
     print("== phase 5: the mesh on the card (shards share it)", flush=True)
     rows, launched = [], {}
-    for name, mesh, n, leg, per_super in MESH_RUNS:
+    for name, mesh, temporal, budgeted, n, leg, per_exchange in MESH_RUNS:
         c, s, y = {**GRIDS, BIG_GRID[0]: BIG_GRID[1]}[name]
         cfg = SimConfig(c_num=c, c_space=s, ydim=y)
-        label = f"{name} mesh {mesh[0]},{mesh[1]}"
-        msim = _make_mesh_sim(cfg, "auto", "trt_split", "auto",
+        label = f"{name} mesh {mesh[0]},{mesh[1]}" + (
+            "" if temporal == "auto" else f" temporal {temporal}") + (
+            " budgeted" if budgeted else "")
+        msim = _make_mesh_sim(cfg, "auto", "trt_split", temporal,
                               f"{mesh[0]},{mesh[1]}", "periodic",
                               "no_mucus", torch.device(DEVICE))
+        if budgeted:
+            # the leg of the plan held to the card's L2 size (auto plans
+            # no budget and takes B8 here)
+            msim.plan = plan_sharded(cfg, K, *mesh, msim.walls, msim.dtype,
+                                     budget=l2_bytes(DEVICE))
+            msim._kernel_path = msim.plan.band_leg
         rc = msim.resolved_config()
-        check(rc["temporal"] == K and rc["band_leg"] == leg
+        k_run = K if temporal == "auto" else temporal
+        check(rc["temporal"] == k_run and rc["band_leg"] == leg
               and rc["backend"] == "cuda", f"{label} resolved {rc}")
         single = MucociliarySim(cfg, backend="cuda", device=DEVICE,
-                                temporal="auto")
+                                temporal=temporal)
         us = {}
         for run_label, sim in (("mesh", msim), ("single", single)):
             sim.run_chunk(sim.init_state(), K)            # warm-up
@@ -1246,24 +1341,32 @@ def phase_mesh(record, q_auto):
             check(bool(torch.isfinite(us[run_label][0]).all()),
                   f"{label} {run_label}: non-finite")
             rc = sim.resolved_config()
-            _report(rows, name, f"{run_label} {rc['mesh'] or 'unsharded'}",
+            _report(rows, name, f"{run_label} {rc['mesh'] or 'unsharded'} "
+                    f"temporal {temporal}"
+                    + (" budgeted" if budgeted and run_label == "mesh"
+                       else ""),
                     cfg, st, sec, n, K=rc["temporal"],
                     band_leg=rc["band_leg"], launches=launches,
                     peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
             if run_label == "mesh":
                 want = {**dict.fromkeys(KERNELS, 0),
-                        **{k: v * (n // K) for k, v in per_super.items()}}
+                        **{k: v * (n // k_run)
+                           for k, v in per_exchange.items()}}
                 check(launches == want, f"{label} launches {launches}, "
                                         f"expected {want}")
                 launched[label] = launches
             del st
         err = rel_l2(us["mesh"][0], us["single"][0])
         qrel = abs(us["mesh"][1] - us["single"][1]) / abs(us["single"][1])
+        same = torch.equal(us["mesh"][0], us["single"][0])
         print(f"  {label} vs single-device after {n} steps: velocity "
-              f"rel-L2 {err:.3e}, flux rel {qrel:.3e}", flush=True)
-        rows.append(dict(grid=name, mesh=list(mesh),
+              f"rel-L2 {err:.3e}, flux rel {qrel:.3e}, bit-identical "
+              f"{same}", flush=True)
+        rows.append(dict(grid=name, mesh=list(mesh), temporal=temporal,
+                         budgeted=budgeted, band_leg=leg,
                          velocity_rel_l2_mesh_vs_single=err,
-                         flux_rel_mesh_vs_single=qrel))
+                         flux_rel_mesh_vs_single=qrel,
+                         velocity_bit_identical=same))
         check(err <= 1e-5 and qrel <= 1e-5,
               f"{label}: mesh vs single velocity {err}, flux {qrel}")
         del msim, single, us
@@ -1280,7 +1383,7 @@ def phase_mesh(record, q_auto):
     n_super *= steps // interval
     want = {**dict.fromkeys(KERNELS, 0),
             "B3 sharded_fused_step": n_super * K + 2 * rest,
-            "B7 ghost_temporal": 2 * n_super, "B0 collide_rows": 4 * rest}
+            "B7 ghost_temporal": 2 * n_super, "B0 collide_slabs": rest}
     check(nm == want, f"--mesh 2,1 launches {nm}, expected {want}")
     check("Mesh: 2,1 over 1 device(s)" in logm
           and "Kernel path: per_substep_tiled" in logm
@@ -1572,6 +1675,20 @@ def phase_probes(record):
     ms = {k: nbytes / (pat[k]["median_gbs"] * 1e9) * 1e3
           for k in ("P2 copy threads=256 grid=vec",
                     "P3 ring copy tile=32KiB depth=2", "copy_ (library)")}
+    p3, lib = ms["P3 ring copy tile=32KiB depth=2"], ms["copy_ (library)"]
+    print(f"  P3 ring copy, 32 KiB tiles at depth 2: {p3:.4f} ms "
+          f"({pat['P3 ring copy tile=32KiB depth=2']['median_gbs']:.1f} "
+          f"GB/s); copy_ in the same run {lib:.4f} ms "
+          f"({pat['copy_ (library)']['median_gbs']:.1f} GB/s); P3 / copy_ "
+          f"time {p3 / lib:.4f}", flush=True)
+    record["p3_over_copy_time"] = p3 / lib
+    runs = {name: pat[name]["median_gbs"] for name in pat
+            if name.startswith("P3 ring copy tile=32KiB")}
+    print("  P3 at 32 KiB by run length (tiles a block streams; "
+          f"{probes.RING_RUN} where unnamed), GB/s median: "
+          + "; ".join(f"{k[13:]} {v:.1f}" for k, v in runs.items()),
+          flush=True)
+    record["p3_gbs_by_run"] = runs
     copy_plain = probes.device_ms(lambda: probes.probe_copy_reference(xb),
                                   20)
     ring_plain = probes.device_ms(
@@ -1644,17 +1761,18 @@ def main():
     timings.update(probe_rows)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
-    # 2048^2 temporal run, B6 on the 8192^2 temporal run, B7 and B8 on the
-    # 2048^2 (2, 2) mesh, B0 on the 8192^2 (2, 2) mesh, B2h on the quirk
-    # CLI with --temporal 1, P1-P3 on the probes' own runs
+    # 2048^2 temporal run, B6 on the 8192^2 x-tiled leg (a budgeted plan),
+    # B7 and B8 on the 2048^2 (2, 2) mesh, B0 on the 2048^2 (2, 2) mesh at
+    # temporal 1, B2h on the quirk CLI with --temporal 1, P1-P3 on the
+    # probes' own runs
     m22 = n_mesh["2048x2048 mesh 2,2"]
     launches = {"B2 fused_step": n_single["B2 fused_step"],
                 "B3 sharded_fused_step": n_auto["B3 sharded_fused_step"],
                 "B4 temporal_bulk": n_auto["B4 temporal_bulk"],
                 "B5 band_super": n_super["B5 band_super"],
                 "B6 band_super_tiled": n_xtiled["B6 band_super_tiled"],
-                "B0 collide_rows":
-                    n_mesh["8192x8192 mesh 2,2"]["B0 collide_rows"],
+                "B0 collide_slabs": n_mesh[
+                    "2048x2048 mesh 2,2 temporal 1"]["B0 collide_slabs"],
                 "B7 ghost_temporal": m22["B7 ghost_temporal"],
                 "B8 band_super_xsharded": m22["B8 band_super_xsharded"],
                 "B2h collide_stream": n_quirk["B2h collide_stream"],

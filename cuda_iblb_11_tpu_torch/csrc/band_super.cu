@@ -96,14 +96,17 @@
 // and the 49 launches' gaps the rest.  The interpolation's and the
 // spread's times are mostly each launch's fixed cost.
 //
-// B6 at 8192^2 (f32, K = 16): the JAX rule with the card's L2 as the
-// budget takes 8 tiles of 1,024 interior + 2 x 512 ghost columns, so each
+// B6 at 8192^2 (f32, K = 16), on a plan held to the card's L2 size as a
+// budget: 8 tiles of 1,024 interior + 2 x 512 ghost columns, so each
 // tile's working set (about 50 MB: f_ext and two scratch copies of
 // 144 x 2,048 cells, f_band, q, the force) stays L2-resident across its
 // 3K + 1 launches, where the whole 8192-wide band (about 42 MB of f_ext
 // alone) streams each launch through HBM.  The cost of the design is
-// 2 gx / tile = 2x redundant band columns; its bound is B5's (the same
-// function).
+// 2 gx / tile = 2x redundant band columns and 8x the launches, and on the
+// card they cost more than the HBM passes they save: the whole band (B5)
+// is the faster (PERF.md), so the simulations plan no budget and run B6
+// only where a caller builds a budgeted plan.  Its bound is B5's (the
+// same function).
 
 #include "step.cuh"
 

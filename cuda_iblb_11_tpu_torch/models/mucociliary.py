@@ -25,13 +25,14 @@ above the IB band advance K steps in one call of B4 (ops/temporal_bulk),
 while the band leg steps the band with the IB coupling: through B5
 (ops/band_super, "band_super_whole": K sub-steps and the windowed IB in
 one call), through B6 (ops/band_super_tiled, "band_super_xtiled": the same
-on x-tiles, where the whole band's footprint exceeds the card's L2), or
-through K calls of B3 (ops/fused_step.sharded_fused_substep) with the
-torch IB of ops/ib_band ("per_substep").  The remaining steps of a chunk
-run single-step.  "auto" picks the largest eligible K of (16, 8, 4, 2) on
-the cuda backend and 1 elsewhere (as JAX resolves it only on pallas), with
-the reason kept in temporal_reason.  The plan holds a band super-step to
-the L2 of the sim's device (none on the CPU).
+on x-tiles, on a plan built with a footprint budget), or through K calls
+of B3 (ops/fused_step.sharded_fused_substep) with the torch IB of
+ops/ib_band ("per_substep").  The remaining steps of a chunk run
+single-step.  "auto" picks the largest eligible K of (16, 8, 4, 2) on the
+cuda backend and 1 elsewhere (as JAX resolves it only on pallas), with the
+reason kept in temporal_reason.  The plan holds a band super-step to no
+footprint budget on any device (ops/temporal.py says why), so a plan is
+the same on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -59,9 +60,7 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
     sharded_fused_substep_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.precision import full_f32
-from cuda_iblb_11_tpu_torch.ops.temporal import (
-    l2_budget, plan_auto, plan_temporal,
-)
+from cuda_iblb_11_tpu_torch.ops.temporal import plan_auto, plan_temporal
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
@@ -158,17 +157,16 @@ class MucociliarySim:
         self.temporal_requested = temporal
         self.temporal_reason = None
         self.plan = None    # ops/temporal.TemporalPlan when temporal > 1
-        budget = l2_budget(self.device)
         if temporal == "auto":
             if backend == "cuda":
                 self.plan, self.temporal_reason = plan_auto(
-                    cfg, walls, self.dtype, pattern, ib_x_edge, budget)
+                    cfg, walls, self.dtype, pattern, ib_x_edge)
             else:
                 self.temporal_reason = (
                     f"auto: backend {backend!r} has no temporal path")
         elif int(temporal) > 1:
             self.plan = plan_temporal(cfg, int(temporal), walls, self.dtype,
-                                      pattern, ib_x_edge, budget)
+                                      pattern, ib_x_edge)
         elif int(temporal) < 1:
             raise ValueError(f"temporal K must be >= 1, got {temporal}")
         self.temporal = self.plan.K if self.plan else 1

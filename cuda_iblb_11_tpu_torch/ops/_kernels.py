@@ -41,8 +41,7 @@ SIGNATURES = {
                           + [_D] * 2 + [_I] * 3 + [_P]),
     "iblb_band_super": ([_P, _LL, _P, _LL] + [_P] * 15 + [_I] * 9
                         + [_D] * 2 + [_I] * 2 + [_P]),
-    "iblb_collide_rows": ([_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P]
-                          + [_I] * 2 + [_D] * 2 + [_I] * 2 + [_P]),
+    "iblb_collide_slabs": [_P, _I, _P] + [_D] * 2 + [_I] * 2 + [_P],
     "iblb_ghost_temporal": ([_P, _LL] * 4 + [_P] * 5 + [_I] * 9 + [_D] * 2
                             + [_I] * 4 + [_P] * 2),
     "iblb_collide_stream": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_I] * 3 + [_P],
@@ -50,8 +49,9 @@ SIGNATURES = {
 # the probes (csrc/probes.cu) take float32 only
 SIGNATURES_F32 = {
     "iblb_probe_copy": [_P, _P, _LL, _I, _I, _I, _P],
-    "iblb_probe_ring_copy": [_P, _P, _LL, _I, _I, _P],
+    "iblb_probe_ring_copy": [_P, _P, _LL, _I, _I, _I, _P],
     "iblb_probe_chain": [_P, _P, _LL, _I, _I, _P],
+    "iblb_probe_empty": [_I, _P],
 }
 
 

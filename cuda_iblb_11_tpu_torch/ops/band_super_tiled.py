@@ -7,8 +7,9 @@ each tile built by _build_band_super_call :1411, kernel _band_super_kernel
                      tile_x, gx, ...) -> (f_band, bhalos, force_new, flux)
 
 The same function as B5 (ops/band_super.py: the same arguments, the points
-in the same layout, the same outputs), for a band too wide to stay in the
-card's L2 during the 3K + 1 launches of one call.  The domain splits into
+in the same layout, the same outputs), in tiles small enough to stay in
+the card's L2 during the 3K + 1 launches of one call; a plan takes it only
+under a footprint budget (ops/temporal.py).  The domain splits into
 xdim / tile_x tiles; tile t runs the B5 kernel (csrc/band_super.cu, tile
 layout) on the extended block of columns [t tile_x - gx, (t+1) tile_x + gx)
 (periodic), gathered from f_ext and the force, with every periodic lift of

@@ -9,6 +9,12 @@ measures its own ceilings.
     P1  probe_chain      R dependent fma / add / mul links on each element
                          (probe_vpu.py:55, :59; bodies :95-116)
 
+and ``launch_floor_ms``, the device time of one launch of a kernel that
+does nothing, in a stream of back-to-back launches: the floor under a
+kernel as small as B0 (no TPU kernel; an instrument).  Beside them the
+helpers the probe scripts share: ``require_card``, ``device_ms`` and
+``l2_bytes`` (the card's L2 size, the budget of the budgeted band legs).
+
 Each wrapper launches its kernel for a float32 CUDA tensor (or raises) and
 counts the launch; for a CPU tensor it runs the plain torch version beside
 it.  The plain versions are the same arithmetic in eager torch and agree
@@ -29,6 +35,8 @@ import torch
 from cuda_iblb_11_tpu_torch.ops import _kernels
 
 SCALE = 1.0000001      # the scale probe's factor, as the TPU probe's
+RING_RUN = 4           # tiles each P3 block streams (the fastest run in
+                       # probe_bw.py's sweep; longer runs leave a tail)
 CHAIN_A, CHAIN_B = 1.0000001, 1e-7
 # the link's constants as the kernel holds them (float32), exactly in f64
 _A32 = float(torch.tensor(CHAIN_A, dtype=torch.float32))
@@ -44,6 +52,13 @@ def require_card(what: str) -> torch.device:
         raise RuntimeError(f"{what} measures the card: no CUDA device is "
                            "visible (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+def l2_bytes(device) -> int:
+    """The card's L2 size: the footprint budget that builds the band
+    super-step's x-tiled leg and a mesh's per-sub-step leg where it splits
+    the band (the simulations plan no budget: ops/temporal.py)."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
 
 
 def device_ms(fn, reps):
@@ -132,22 +147,26 @@ probe_copy.launches = 0
 
 # --- P3 --------------------------------------------------------------------
 
-def probe_ring_copy_reference(x, tile_bytes=32768, depth=2, out=None):
+def probe_ring_copy_reference(x, tile_bytes=32768, depth=2, out=None,
+                              run=RING_RUN):
     """Plain version of P3: the copy itself."""
     return x.clone() if out is None else out.copy_(x)
 
 
-def probe_ring_copy(x, tile_bytes=32768, depth=2, out=None):
+def probe_ring_copy(x, tile_bytes=32768, depth=2, out=None, run=RING_RUN):
     """P3 on a float32 CUDA tensor of whole tiles of ``tile_bytes`` (a
-    multiple of 16), through a ring of ``depth`` (2 or 3) stages; ``out``
-    must not overlap x."""
+    multiple of 16), through a ring of ``depth`` (2 or 3) stages, loaded
+    and stored by the TMA, ``run`` consecutive tiles a block; ``out`` must
+    not overlap x."""
     if x.device.type == "cpu":
-        return probe_ring_copy_reference(x, tile_bytes, depth, out)
+        return probe_ring_copy_reference(x, tile_bytes, depth, out, run)
     _check_f32("x", x)
     out = _out(x, out)
     _kernels.check_disjoint("out", out, "x", x)
     if depth not in (2, 3):
         raise ValueError(f"ring depth {depth} not in (2, 3)")
+    if not 1 <= run < 1 << 20:
+        raise ValueError(f"run of {run} tiles a block not in 1..2^20")
     if tile_bytes % 16 or not 16 <= tile_bytes * depth <= 225 * 1024:
         raise ValueError(f"tile of {tile_bytes} B: a multiple of 16 whose "
                          f"{depth} stages fit one block's shared memory")
@@ -157,7 +176,7 @@ def probe_ring_copy(x, tile_bytes=32768, depth=2, out=None):
                          f"{tile_bytes} B tiles")
     _kernels.launch("iblb_probe_ring_copy", torch.float32, x.device,
                     x.data_ptr(), out.data_ptr(), nbytes // tile_bytes,
-                    tile_bytes, depth)
+                    tile_bytes, depth, int(run))
     probe_ring_copy.launches += 1
     return out
 
@@ -203,3 +222,20 @@ def probe_chain(x, reps, op="fma", out=None):
 
 
 probe_chain.launches = 0
+
+
+# --- the launch floor ------------------------------------------------------
+
+def launch_floor_ms(count=500, device=None):
+    """Mean device ms per launch of an empty kernel (one block of one
+    warp): ``count`` back-to-back launches issued from C, timed as one
+    call by device_ms (``count`` stays below the launches the card queues
+    behind the timer's spin kernel, so the card, not the host, sets the
+    pace)."""
+    dev = torch.device(device) if device is not None else require_card(
+        "launch_floor_ms")
+
+    def call():
+        _kernels.launch("iblb_probe_empty", torch.float32, dev, int(count))
+
+    return device_ms(call, 1) / count

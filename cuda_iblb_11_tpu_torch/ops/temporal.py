@@ -27,10 +27,17 @@ halo from beat_x_bound() + 3 rounded up to 128), the ghost-column margin
 gx >= W + 8K rounded up to 128 columns, the tile search (a multiple of
 c_space dividing xdim into >= 2 tiles, tile + 2 gx <= xdim) and the
 footprint of one band super-step instance, _band_super_resident (:1365).
-The budget that footprint is held to is the caller's: the card's L2 (the
-model passes torch.cuda.get_device_properties(device).L2_cache_size), and
-none on the CPU, as the JAX package skips its VMEM budget in interpret
-mode; so on the CPU both packages pick the same K, leg and pads.  Not
+The budget that footprint is held to is the caller's, and the
+simulations give none on any device.  The TPU's VMEM is a capacity; the
+card's L2 is a cache, and wherever the card's L2 size as a budget split
+the band, the whole band super-step measured faster than the x-tiled one
+(B5 against B6 at 8192^2 f32 and f64 and 2048^2 f64, B8 on the whole
+x-shard block against the per-sub-step leg on 8192^2 (2, 2):
+probe_legs.py, PERF.md section 6).  So every device plans as the JAX
+package plans in interpret mode, where it skips its VMEM budget, and both
+packages pick the same K, leg and pads.  A budget still builds the x-tiled
+leg and the mesh's per-sub-step leg where a caller asks for them (the
+card tests, chip_smoke.py, probe_legs.py).  Not
 kept: the bulk's VMEM ring budget (:1007-1021), _pick_tile's VMEM budget
 and the 128-lane alignments of c_space, the halo and the tile (:1340,
 :1358, :1647): the port's bulk keeps no rings and its kernels take any
@@ -418,11 +425,3 @@ def plan_auto(cfg, walls, dtype, pattern: str = "no_mucus",
         return plan, reason
     return None, f"auto: no eligible K ({err})"
 
-
-def l2_budget(device) -> int | None:
-    """The budget of a band super-step on `device`: the card's L2 bytes,
-    None (no limit) off the card."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return torch.cuda.get_device_properties(device).L2_cache_size

@@ -21,9 +21,9 @@ to the other shards of the column.  The launch counts say so: one band
 leg call per x-column per super-step.
 
 Per step (ShardedPallasSim, _fluid_step), every shard:
-  1. collides its four edge lines (B0, ops/collide_rows) and hands them to
-     its neighbours, the row payloads extended with the x-neighbours'
-     corner cells;
+  1. collides its four edge lines (B0, ops/collide_rows: every shard's
+     lines in one launch per device) and hands them to its neighbours,
+     the row payloads extended with the x-neighbours' corner cells;
   2. steps its block (B3 at the shard's width, ops/fused_step), pulling the
      neighbours' rows at the y seams; the x-roll wraps the block, so the
      two edge columns are pulled again from the neighbours' f1 columns
@@ -79,7 +79,7 @@ from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
     band_super_xsharded, band_super_xsharded_reference, shard_points,
 )
 from cuda_iblb_11_tpu_torch.ops.collide_rows import (
-    collide_rows, collide_rows_reference,
+    collide_slabs, collide_slabs_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
     sharded_fused_substep, sharded_fused_substep_reference,
@@ -87,9 +87,7 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
 from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
     ghost_temporal, ghost_temporal_reference,
 )
-from cuda_iblb_11_tpu_torch.ops.temporal import (
-    GHOST_PAD, l2_budget, plan_sharded,
-)
+from cuda_iblb_11_tpu_torch.ops.temporal import GHOST_PAD, plan_sharded
 
 
 def visible_devices(device_type: str = "cuda") -> list[torch.device]:
@@ -303,9 +301,20 @@ class ShardedPallasSim:
     def _pick(self, kernel, plain):
         return plain if self.backend == "torch" else kernel
 
-    def _collide(self, f_slab, force_slab):
-        return self._pick(collide_rows, collide_rows_reference)(
-            f_slab, force_slab, self.cfg, self.forcing, self.storage)
+    def _collide(self, slabs):
+        """B0 on the (f, force) slabs of one exchange: the slabs that live
+        on one device in one call, each f1 in the slabs' order."""
+        collide = self._pick(collide_slabs, collide_slabs_reference)
+        by_dev = {}
+        for i, (f_slab, _) in enumerate(slabs):
+            by_dev.setdefault(f_slab.device, []).append(i)
+        out = [None] * len(slabs)
+        for idx in by_dev.values():
+            f1 = collide([slabs[i] for i in idx], self.cfg, self.forcing,
+                         self.storage)
+            for i, f1_slab in zip(idx, f1):
+                out[i] = f1_slab
+        return out
 
     def _b3(self, flags, f_loc, force, bhalo, thalo, expose_row=None):
         return self._pick(sharded_fused_substep,
@@ -366,25 +375,25 @@ class ShardedPallasSim:
         devs = self.mesh.devices
         fo = [force[ix].to(devs[k]) for k, (_, ix) in enumerate(self.shards)]
 
-        # edge-line f1, exchanged in two phases (x, then y with corners)
-        f1_bot, f1_top, f1_w, f1_e = [], [], [], []
+        # edge-line f1 (bottom, top, and west, east on x-sharded meshes),
+        # every shard's in one B0 call per device, exchanged in two phases
+        # (x, then y with corners)
+        slabs = []
         for k, (iy, _) in enumerate(self.shards):
             y0 = iy * yl
-            f1_bot.append(self._collide(
-                f[k][:, 0:1], self._band_force_rows(fo[k], y0, 1)))
-            f1_top.append(self._collide(
-                f[k][:, yl - 1:yl], self._band_force_rows(fo[k], y0 + yl - 1,
-                                                          1)))
+            slabs += [(f[k][:, 0:1], self._band_force_rows(fo[k], y0, 1)),
+                      (f[k][:, yl - 1:yl],
+                       self._band_force_rows(fo[k], y0 + yl - 1, 1))]
             if n_x > 1:
-                f1_w.append(self._collide(
-                    f[k][:, :, 0:1],
-                    self._band_force_rows(fo[k], y0, yl, lane=0)))
-                f1_e.append(self._collide(
-                    f[k][:, :, xl - 1:xl],
-                    self._band_force_rows(fo[k], y0, yl, lane=xl - 1)))
+                slabs += [(f[k][:, :, lane:lane + 1],
+                           self._band_force_rows(fo[k], y0, yl, lane=lane))
+                          for lane in (0, xl - 1)]
+        f1 = self._collide(slabs)
+        per = 4 if n_x > 1 else 2
+        f1_bot, f1_top = f1[0::per], f1[1::per]
         if n_x > 1:
-            w_halo = self._shift_x(f1_e, 1)     # from shard ix - 1
-            e_halo = self._shift_x(f1_w, -1)    # from shard ix + 1
+            w_halo = self._shift_x(f1[3::per], 1)    # from shard ix - 1
+            e_halo = self._shift_x(f1[2::per], -1)   # from shard ix + 1
             ext_top = [torch.cat([w[:, yl - 1:yl], t, e[:, yl - 1:yl]], 2)
                        for w, t, e in zip(w_halo, f1_top, e_halo)]
             ext_bot = [torch.cat([w[:, 0:1], b, e[:, 0:1]], 2)
@@ -475,8 +484,7 @@ class ShardedTemporalSim(ShardedPallasSim):
         super().__init__(cfg, mesh, walls, forcing, pattern, dtype, backend,
                          ib_x_edge)
         self.plan = plan_sharded(cfg, int(temporal), self.n_y, self.n_x,
-                                 walls, self.dtype, pattern,
-                                 l2_budget(self.device))
+                                 walls, self.dtype, pattern)
         self.temporal = self.temporal_requested = self.plan.K
         self._kernel_path = self.plan.band_leg
 
@@ -588,10 +596,12 @@ class ShardedTemporalSim(ShardedPallasSim):
         cfg, xl, n_x = self.cfg, self.xl, self.n_x
         rows = cfg.force_band + self.plan.pad_b
         if n_x > 1:
-            f1_w = [self._collide(b[:, :, 0:1], self._band_force_rows(
-                fo, 0, rows, lane=0)) for b, fo in zip(blk, force)]
-            f1_e = [self._collide(b[:, :, xl - 1:xl], self._band_force_rows(
-                fo, 0, rows, lane=xl - 1)) for b, fo in zip(blk, force)]
+            # both seam columns of every x-column in one B0 call per device
+            f1 = self._collide([
+                (b[:, :, lane:lane + 1],
+                 self._band_force_rows(fo, 0, rows, lane=lane))
+                for b, fo in zip(blk, force) for lane in (0, xl - 1)])
+            f1_w, f1_e = f1[0::2], f1[1::2]
             w_halo = self._shift_cols(f1_e, 1)
             e_halo = self._shift_cols(f1_w, -1)
 

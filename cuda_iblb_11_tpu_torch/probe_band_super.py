@@ -19,9 +19,10 @@ itself (two runs).
    after a spin kernel, ops/probes.device_ms).  Cases, K = 16, seeded
    inputs near equilibrium and the points of 16 real steps from it = 1000:
    B5 at 2048^2 (16 cilia) f32 deviatoric and f64 raw, both top walls, and
-   at 8192^2 (64 cilia) f32 deviatoric, top slip; B6 where temporal "auto"
-   takes it, 2048^2 f64 raw (both tops) and 8192^2 f32; B8 on both
-   x-shards of the 2048^2 (2, 2) mesh, f32 and f64, both tops.
+   at 8192^2 (64 cilia) f32 deviatoric, top slip; B6 where the card's L2
+   size as a budget splits the band, 2048^2 f64 raw (both tops) and
+   8192^2 f32; B8 on both x-shards of the 2048^2 (2, 2) mesh, f32 and
+   f64, both tops.
 2. B6 against B5 on the same inputs, torch.equal, for each build: at
    those shapes and at tests/test_torch_cuda.py's B6 shapes (384 x 192
    with 12 cilia on three tiles, K = 2 and 4, f32 and f64).
@@ -143,9 +144,10 @@ def _points(cfg, K_, halo, dtype, it0=1000):
 
 
 def cases(grids=GRIDS):
-    """(label, {kernel: call}) per input set (B5, B6 where temporal auto
-    takes it, B8 on each x-shard at 2048^2), one set at a time so that
-    the 8192^2 tensors are freed before the next is made."""
+    """(label, {kernel: call}) per input set (B5 on temporal auto's whole
+    leg, B6 where the card's L2 size as a budget splits the band, B8 on
+    each x-shard at 2048^2), one set at a time so that the 8192^2 tensors
+    are freed before the next is made."""
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
     from cuda_iblb_11_tpu_torch.ops import reference as ref
     from cuda_iblb_11_tpu_torch.ops.band_super import band_super
@@ -156,6 +158,7 @@ def cases(grids=GRIDS):
     from cuda_iblb_11_tpu_torch.ops.temporal import (
         plan_temporal, xshard_layout,
     )
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
 
     sets = [("2048x2048", "float32", "deviatoric", "slip"),
             ("2048x2048", "float32", "deviatoric", "noslip"),
@@ -169,9 +172,10 @@ def cases(grids=GRIDS):
         cfg = SimConfig(c_num=c, c_space=s, ydim=y)
         dtype = getattr(torch, dt)
         walls = ref.WallSpec(top=top)
-        plan = MucociliarySim(cfg, walls, backend="cuda", device="cuda",
-                              dtype=dtype, temporal="auto").plan
-        whole = plan_temporal(cfg, K, walls, dtype)
+        whole = MucociliarySim(cfg, walls, backend="cuda", device="cuda",
+                               dtype=dtype, temporal="auto").plan
+        # B6 where the card's L2 size as a budget splits the band
+        plan = plan_temporal(cfg, K, walls, dtype, budget=l2_bytes("cuda"))
         f, force = _inputs(cfg, storage, dtype, seed)
         band = cfg.force_band
         f_ext = f[:, :band + whole.pad_s]

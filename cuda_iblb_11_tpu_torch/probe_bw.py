@@ -10,7 +10,10 @@ L2), each read once and written once per call:
     per thread or a persistent grid of the resident blocks), the GPU's
     counterpart of the TPU script's row-tile sweep (:191-206);
   - P3 (ops/probes.probe_ring_copy): the ring copy at depth 2 and 3 over
-    three tile sizes, as the TPU's (ty, depth) pairs (:207);
+    three tile sizes, as the TPU's (ty, depth) pairs (:207), each block
+    streaming RING_RUN tiles; and 32 KiB tiles at both depths with the
+    other runs of RUN_SWEEP (the run length is the port's own knob: how
+    many tiles each block's ring carries);
   - the library calls beside them: ``dst.copy_(src)``,
     ``torch.mul(src, 1.0000001, out=dst)`` and ``x.mul_(1.0000001)``;
   - the rate B2 (the fused step kernel) implies at 2048^2 f32 deviatoric,
@@ -45,6 +48,7 @@ CALLS = 50
 BLOCK_SHAPES = ((128, "vec"), (256, "vec"), (512, "vec"), (1024, "vec"),
                 (256, "resident"), (1024, "resident"))
 RINGS = ((16384, 2), (16384, 3), (32768, 2), (32768, 3), (65536, 2))
+RUN_SWEEP = (8, 16)      # runs beside probes.RING_RUN, on 32 KiB tiles
 STEP_BYTES_PER_CELL = 72
 DEFAULT_JSON = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "probe_bw.json")
@@ -86,6 +90,12 @@ def patterns(x, dst):
                     "kernel",
                     lambda t=tile, d=depth: probes.probe_ring_copy(
                         x, t, d, out=dst)))
+    for depth in (2, 3):
+        for run in RUN_SWEEP:
+            out.append((f"P3 ring copy tile=32KiB depth={depth} run={run}",
+                        "kernel",
+                        lambda d=depth, r=run: probes.probe_ring_copy(
+                            x, 32768, d, out=dst, run=r)))
     out += [
         ("copy_ (library)", "library", lambda: dst.copy_(x)),
         ("torch.mul out= (library)", "library",
@@ -123,6 +133,11 @@ def check_against_plain(x, dst) -> dict:
         got = probes.probe_ring_copy(x, tile, depth,
                                      out=dst.fill_(float("nan")))
         errs[f"P3 tile={tile} depth={depth}"] = err(got, x)
+    for depth in (2, 3):
+        for run in RUN_SWEEP:
+            got = probes.probe_ring_copy(x, 32768, depth, run=run,
+                                         out=dst.fill_(float("nan")))
+            errs[f"P3 tile=32768 depth={depth} run={run}"] = err(got, x)
     torch.cuda.synchronize()
     return errs
 

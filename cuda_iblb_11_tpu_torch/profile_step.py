@@ -3,8 +3,7 @@
     python -m cuda_iblb_11_tpu_torch.profile_step [--grids 288x192,2048x2048]
         [--steps 64] [--temporal K|auto] [--mesh Y,X] [--out PATH]
 
-(grids: 288x192, 2048x2048, and 8192x8192 with 64 cilia, where
---temporal auto takes the x-tiled band leg on an H100).
+(grids: 288x192, 2048x2048, and 8192x8192 with 64 cilia).
 
 For each grid it builds ``MucociliarySim`` on the card (f32, the hand
 kernels, temporal K as asked: 1 by default, the single-step path), or with

@@ -26,6 +26,7 @@ plain versions), inputs from a numpy seed, f64.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -275,15 +276,17 @@ def test_temporal_sim_xtiled_matches_jax_tiled():
 
 
 def test_cli_records_the_xtiled_leg(tmp_path, monkeypatch):
-    # the CLI on a sim whose device budget rejects the whole band (as the
-    # card's L2 does at 8192^2): the run takes B6 and SimLog names the leg
+    # the CLI on a sim whose plan is held to a budget one byte below the
+    # whole band's footprint (no device sets one): the run takes B6 and
+    # SimLog names the leg
     from cuda_iblb_11_tpu_torch.cli import main
     from cuda_iblb_11_tpu_torch.models import mucociliary
 
     cfg = SimConfig(**TILED)
     whole = band_super_resident(cfg.xdim, cfg.force_band + 8,
                                 cfg.force_band, 2 * 128, torch.float64)
-    monkeypatch.setattr(mucociliary, "l2_budget", lambda device: whole - 1)
+    monkeypatch.setattr(mucociliary, "plan_temporal", functools.partial(
+        plan_temporal, budget=whole - 1))
     assert main(["1", "12", "128", "1.0", "1.0", "5", "0.00004", "2", "0",
                  "0", "--quiet", "--device", "cpu", "--dtype", "float64",
                  "--output", str(tmp_path), "--temporal", "2"]) == 0

@@ -48,7 +48,8 @@ from cuda_iblb_11_tpu_torch.ops.band_super_xsharded import (
 from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
 from cuda_iblb_11_tpu_torch.ops import probes
 from cuda_iblb_11_tpu_torch.ops.collide_rows import (
-    collide_rows, collide_rows_reference,
+    MAX_SLABS, collide_rows, collide_rows_reference, collide_slabs,
+    collide_slabs_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.collide_stream import (
     collide_stream, collide_stream_reference,
@@ -297,9 +298,9 @@ def super_inputs(cfg, K, dtype, storage, device, it0=137, seed=4):
     sim = MucociliarySim(cfg, backend="torch", device=device, dtype=dtype,
                          temporal=K)
     plan = sim.plan
-    # the whole leg, or at 12 cilia in f64 the x-tiled one (the whole
-    # band's footprint exceeds the card's L2): both take these inputs
-    assert plan.band_leg in ("band_super_whole", "band_super_xtiled")
+    # the whole leg (no device holds the band to a budget); the x-tiled
+    # leg takes the same inputs
+    assert plan.band_leg == "band_super_whole"
     f, force = random_inputs(cfg, storage, dtype, device, seed)
     _, u_s, eps, anchor, frac, _ = sim.step_kinematics(it0, K)
     xs = prep_band_super_points(cfg, K, plan.halo, dtype, u_s, eps, anchor,
@@ -410,7 +411,8 @@ TILED = dict(c_num=12, c_space=128, ydim=192)   # 3 tiles of 512 + 2 x 512
 
 def xtiled_plan(cfg, K, dtype, walls=ref.REFERENCE_WALLS):
     """The plan of cfg with a budget one byte below the whole band's
-    footprint: the x-tiled leg, as the card's L2 makes it at 8192^2."""
+    footprint: the x-tiled leg (the plans of the simulations take no
+    budget)."""
     whole = plan_temporal(cfg, K, walls, dtype)
     fp = band_super_resident(cfg.xdim, cfg.force_band + whole.pad_s,
                              cfg.force_band, 2 * whole.halo, dtype)
@@ -672,14 +674,70 @@ def test_b0_matches_plain_version(card, dtype, storage, top):
     f, force = random_inputs(cfg, storage, dtype, card, seed=8)
     fo = torch.zeros((2,) + f.shape[1:], dtype=dtype, device=card)
     fo[:, :cfg.force_band] = force
-    before = collide_rows.launches
+    before = collide_slabs.launches
     for sl in (np.s_[:, 5:6, :], np.s_[:, :, 7:8], np.s_[:, :150, -1:]):
         got = collide_rows(f[sl], fo[sl], cfg, "trt_split", storage)
         want = collide_rows_reference(f[sl], fo[sl], cfg, "trt_split",
                                       storage)
         assert got.is_contiguous() and got.shape == want.shape
         assert rel_l2(got, want) <= GATE[dtype]
-    assert collide_rows.launches == before + 3
+    assert collide_slabs.launches == before + 3
+
+
+def _slab_table(f, fo, n):
+    """n slabs of f and fo read in place, in turn an edge row, an edge
+    column, a block, a partial column and an empty slab, each somewhere
+    else in the state."""
+    y, x = f.shape[1:]
+    out = []
+    for i in range(n):
+        r, c = (7 * i) % (y - 4), (13 * i) % (x - 4)
+        sl = (np.s_[:, r:r + 1, :], np.s_[:, :, c:c + 1],
+              np.s_[:, r:r + 3, c:c + 4], np.s_[:, :150, c:c + 1],
+              np.s_[:, r:r, :])[i % 5]
+        out.append((f[sl], fo[sl]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+@pytest.mark.parametrize("n", [1, 17, MAX_SLABS + 5])
+def test_b0_table_is_the_per_slab_kernel(card, dtype, storage, top, n):
+    # one launch per MAX_SLABS slabs of mixed rows, columns and blocks, read
+    # in place (strided), an empty slab among them: each f1 equals the
+    # single-slab call's bit for bit, and the plain version's to its gate
+    cfg = SimConfig(**SMALL)
+    f, force = random_inputs(cfg, storage, dtype, card, seed=9)
+    fo = torch.zeros((2,) + f.shape[1:], dtype=dtype, device=card)
+    fo[:, :cfg.force_band] = force
+    slabs = _slab_table(f, fo, n)
+    assert n < 5 or any(a.numel() == 0 for a, _ in slabs)
+    before = collide_slabs.launches
+    got = collide_slabs(slabs, cfg, "trt_split", storage)
+    assert collide_slabs.launches == before + -(-n // MAX_SLABS)
+    want = collide_slabs_reference(slabs, cfg, "trt_split", storage)
+    one = [collide_rows(a, b, cfg, "trt_split", storage) for a, b in slabs]
+    torch.cuda.synchronize()
+    for g, w, o, (a, _) in zip(got, want, one, slabs):
+        assert g.shape == a.shape and g.is_contiguous()
+        assert torch.equal(g, o)
+        if a.numel():
+            assert rel_l2(g, w) <= GATE[dtype]
+
+
+@pytest.mark.cuda
+def test_b0_table_refuses_mixed_slabs(card):
+    cfg = SimConfig(**SMALL)
+    f, force = random_inputs(cfg, "raw", torch.float64, card, seed=9)
+    fo = torch.zeros((2,) + f.shape[1:], dtype=f.dtype, device=card)
+    before = collide_slabs.launches
+    row = (f[:, 0:1], fo[:, 0:1])
+    with pytest.raises(ValueError, match="slab 1"):     # another dtype
+        collide_slabs([row, (f[:, 1:2].float(), fo[:, 1:2].float())], cfg)
+    with pytest.raises(ValueError, match="slab 1: force shape"):
+        collide_slabs([row, (f[:, 1:2], fo[:, 1:3])], cfg)
+    assert collide_slabs([], cfg) == []
+    assert collide_slabs.launches == before
 
 
 def _ghost_case(cfg, f, y0, yl, x0, xl, xpad, K, pad=16):
@@ -929,16 +987,17 @@ def test_b8_matches_plain_version(card, c_num, n_x, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
     # every shard on the one card: the kernels against their plain
-    # versions through the whole sharded path, 2 K + 2 steps
+    # versions through the whole sharded path, 2 K + 2 steps; B0 launches
+    # once per exchange: per step, and per band sub-step on the
+    # per-sub-step leg of an x-sharded mesh (the two remainder steps of
+    # the temporal legs are per-step exchanges)
     cfg = SimConfig(c_num=16 if leg == "band_super_xsharded" else 3,
                     c_space=128, ydim=256, dtype=dtype)
-    if leg == "band_super_xsharded" and dtype == "float64":
-        # the L2 rule: the f64 block of 2,048 columns (72.7 MB) exceeds
-        # the card's L2, so this mesh takes the per-sub-step leg
-        leg = "per_substep_tiled"
     m = make_mesh(*mesh, devices=[card])
-    wrappers = (collide_rows, sharded_fused_substep, ghost_temporal,
+    wrappers = (collide_slabs, sharded_fused_substep, ghost_temporal,
                 band_super, band_super_xsharded)
+    b0 = 2 * K + 2 if leg in ("sharded_per_step", "per_substep_tiled") \
+        else 2
     states = {}
     for backend in ("cuda", "torch"):
         sim = (ShardedPallasSim(cfg, m, backend=backend) if K == 1 else
@@ -948,6 +1007,7 @@ def test_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
         st = sim.run_chunk(sim.init_state(), 2 * K + 2)
         launched = [w.launches - a for w, a in zip(wrappers, n0)]
         assert (sum(launched) > 0) == (backend == "cuda"), launched
+        assert launched[0] == (b0 if backend == "cuda" else 0), launched
         states[backend] = (sim, st)
     (sc, a), (_, b) = states["cuda"], states["torch"]
     ua, ub = sc.fields(a)[1], sc.fields(b)[1]
@@ -955,6 +1015,29 @@ def test_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30
+
+
+@pytest.mark.cuda
+def test_mesh_8192_takes_b8_and_matches_single_device(card):
+    # 8192^2 with 64 cilia on (2, 2), every shard on the card: the plan
+    # takes B8 on the 5,120-column block (no budget), within 1e-5 of the
+    # single-device auto run after 32 steps
+    cfg = SimConfig(c_num=64, c_space=128, ydim=8192)
+    msim = ShardedTemporalSim(cfg, make_mesh(2, 2, devices=[card]),
+                              temporal=16)
+    assert msim.resolved_config()["band_leg"] == "band_super_xsharded"
+    single = MucociliarySim(cfg, device=card, temporal="auto")
+    assert single.plan.band_leg == "band_super_whole"
+    n0 = (band_super_xsharded.launches, ghost_temporal.launches,
+          collide_slabs.launches)
+    a = msim.run_chunk(msim.init_state(), 32)
+    assert (band_super_xsharded.launches - n0[0], ghost_temporal.launches
+            - n0[1], collide_slabs.launches - n0[2]) == (4, 8, 0)
+    b = single.run_chunk(single.init_state(), 32)
+    ua, ub = msim.fields(a)[1], single.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    assert rel_l2(ua, ub) <= 1e-5
+    assert abs(float(a.q) - float(b.q)) <= 1e-5 * abs(float(b.q))
 
 
 # --- B2h, the quirk mode, the channel ------------------------------------
@@ -1139,22 +1222,63 @@ def test_p3_ring_copy_bit_for_bit(card, tile, depth):
 @pytest.mark.parametrize("tile,depth", [(1024, 2), (1024, 3), (4096, 3),
                                         (65536, 2), (65536, 3)])
 def test_p3_ring_wraps_over_many_tiles_per_block(card, tile, depth):
-    # 64 MiB plus one tile against the grid of resident blocks (at most 8
-    # of 256 threads per SM, fewer where the stages fill shared memory):
-    # every block copies at least 2 x depth tiles (some one more), so each
-    # stage is refilled, the mbarrier parity flips and the proxy fence runs
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
-    per_sm = min(8, (228 << 10) // (128 + depth * tile))
+    # 64 MiB plus one tile: every block but the last streams its run of
+    # tiles and the last copies the one tile left.  The default run
+    # (RING_RUN) wraps each ring; a run of 8 tiles, more than 2 x depth,
+    # refills every stage after its store has read it at least twice, so
+    # each stage's mbarrier parity flips both ways
+    long_run = 8
+    assert probes.RING_RUN > depth and long_run > 2 * depth
     n = (64 << 20) // 4 + tile // 4
-    assert n * 4 // tile // (per_sm * sms) >= 2 * depth
     g = torch.Generator(device=card).manual_seed(tile + depth)
     x = torch.rand(n, generator=g, device=card)
+    for run in (probes.RING_RUN, long_run):
+        assert (n * 4 // tile) % run == 1
+        out = torch.full_like(x, float("nan"))
+        before = probes.probe_ring_copy.launches
+        probes.probe_ring_copy(x, tile, depth, out=out, run=run)
+        torch.cuda.synchronize()
+        assert probes.probe_ring_copy.launches == before + 1
+        assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [2, 3])
+def test_p3_ring_tiles_not_dividing_by_the_grid(card, depth):
+    # 8,191 tiles, a prime: no run of tiles a block divides it, and the
+    # last block's ring ends before it is full
+    tile = 4096
+    g = torch.Generator(device=card).manual_seed(depth)
+    x = torch.rand(8191 * tile // 4, generator=g, device=card)
     out = torch.full_like(x, float("nan"))
     before = probes.probe_ring_copy.launches
     probes.probe_ring_copy(x, tile, depth, out=out)
     torch.cuda.synchronize()
     assert probes.probe_ring_copy.launches == before + 1
     assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 3, 4, 16])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_p3_ring_run_lengths_copy_bit_for_bit(card, run, depth):
+    # probe_bw's run-length sweep: runs shorter than the ring, equal to
+    # it and longer; 1,001 tiles leave every run a partial last block
+    tile = 8192
+    g = torch.Generator(device=card).manual_seed(run * 4 + depth)
+    x = torch.rand(1001 * tile // 4, generator=g, device=card)
+    out = torch.full_like(x, float("nan"))
+    before = probes.probe_ring_copy.launches
+    probes.probe_ring_copy(x, tile, depth, out=out, run=run)
+    torch.cuda.synchronize()
+    assert probes.probe_ring_copy.launches == before + 1
+    assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+def test_launch_floor_is_positive_and_small(card):
+    ms = probes.launch_floor_ms(count=400, device=card)
+    assert 0.0 < ms < 0.02
 
 
 @pytest.mark.cuda

@@ -9,9 +9,10 @@ force rtol 1e-10, q rtol 1e-12), with each case's band leg asserted.
     384 on (4, 1)); B8 on (1, 2) and (2, 2) (band_super_xsharded); the
     per-sub-step leg on (2, 2); the phase-general B8 on (2, 4).
 (b) ShardedPallasSim, one step per exchange, on (2, 2).
-(c) The L2 rule's legs on the H100's 52,428,800-byte L2 at 2048^2 and
-    8192^2 f32 (B8 + B7, B5 + B7, the per-sub-step leg); the mesh,
-    place/gather and refusals.
+(c) The plan function held to the H100's 52,428,800-byte L2 as a budget
+    at 2048^2 and 8192^2 f32 (B8 + B7, B5 + B7, the per-sub-step leg), and
+    the sims' own plan, which takes no budget (B8 on 8192^2 (2, 2)); the
+    mesh, place/gather and refusals.
 """
 
 import functools
@@ -140,6 +141,19 @@ def test_l2_rule_picks_the_legs_on_the_h100(ydim, c_num, mesh, want):
                             torch.float32)
         assert free.band_leg == "band_super_xsharded"
         assert free.xshard.width == 5120
+
+
+def test_mesh_at_8192_takes_b8_on_every_device():
+    # the sims plan no budget on any device: 8192^2 on (2, 2) takes B8 on
+    # the 5,120-column block, where the card's L2 as a budget took the
+    # per-sub-step leg (the test above)
+    cfg = SimConfig(c_num=64, c_space=128, ydim=8192)
+    sim = ShardedTemporalSim(cfg, make_mesh(2, 2, devices=["cpu"]),
+                             temporal=16)
+    assert sim.plan == plan_sharded(cfg, 16, 2, 2, ref.REFERENCE_WALLS,
+                                    torch.float32)
+    assert sim.resolved_config()["band_leg"] == "band_super_xsharded"
+    assert sim.plan.xshard.width == 5120
 
 
 def test_reference_channel_on_2x1_takes_the_tiled_leg():

@@ -221,6 +221,41 @@ def test_plan_at_8192_takes_k16_where_the_tpu_budget_took_k8():
                                                         "band_super_whole")
 
 
+@pytest.mark.parametrize("kw,K", [
+    (dict(c_num=16, c_space=128, ydim=2048, dtype="float64"), "auto"),
+    (dict(c_num=64, c_space=128, ydim=8192, dtype="float32"), 8),
+    (dict(c_num=64, c_space=128, ydim=8192, dtype="float64"), 4),
+])
+def test_plans_take_the_whole_band_where_the_l2_rule_split_it(kw, K):
+    # the smoke sizes where the card's L2 as a budget took the x-tiled leg:
+    # with no budget on any device the port plans the whole band
+    # super-step, as JAX plans on the CPU (at JAX's K: its bulk's VMEM
+    # rings cap K at 8192^2, 8 in f32 and 4 in f64), and auto's K = 16
+    # takes it too
+    jcfg, tcfg = _cfgs(**kw)
+    got = _port_plan(tcfg, K, "no_mucus")
+    assert got == _jax_plan(jcfg, K, "no_mucus")
+    assert got[1] == "band_super_whole"
+    assert _port_plan(tcfg, "auto", "no_mucus")[:2] == (16,
+                                                        "band_super_whole")
+    sim = MucociliarySim(tcfg, device="cpu", temporal=16)
+    assert sim.plan.band_leg == "band_super_whole"
+
+
+def test_no_module_plans_by_the_card_l2():
+    # the simulations plan no footprint budget on any device: only the
+    # probes' module reads the card's L2 size (l2_bytes, the budget that
+    # builds the legs the leg probe measures against the whole ones)
+    import pathlib
+
+    import cuda_iblb_11_tpu_torch
+
+    root = pathlib.Path(cuda_iblb_11_tpu_torch.__file__).parent
+    readers = sorted(str(p.relative_to(root)) for p in root.rglob("*.py")
+                     if "L2_cache_size" in p.read_text())
+    assert readers == ["ops/probes.py"]
+
+
 def test_auto_resolves_to_one_off_the_cuda_backend():
     sim = MucociliarySim(SimConfig(c_num=6, c_space=48), device="cpu",
                          temporal="auto")

@@ -117,7 +117,16 @@ Phases; any failure exits non-zero before the final line:
      rounds once, as fmaf does), then probe_bw (3 reps) and probe_vpu,
      their GB/s and TFLOP/s and shares of the data sheet's peaks, P3's
      time at 32 KiB depth 2 over copy_'s from the same run, and P3's rate
-     at each run length a block streams.
+     at each run length a block streams;
+  9. accuracy on the card: at 192 x 192 with 4 cilia, the f64 raw
+     single-step run (B2 in f64) against f32 single-step (B2) and f32
+     temporal "auto" (K = 16, the per-sub-step leg: B3 + the torch IB +
+     B4), 4,000 steps read at 500 / 2,000 / 4,000: velocity rel-L2 of each
+     f32 run < 1e-5 / 3e-5 / 8e-5 and the 4,000-step error < 12 x the
+     500-step one (tests/test_accuracy_horizon.py:50-73), exact launch
+     counts of each run; then 2048 x 2048 (16 cilia) temporal "auto" (B5 +
+     B4) against temporal 1 (B2) after 2,048 steps, velocity rel-L2
+     <= 1e-5, exact launch counts.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -165,6 +174,12 @@ MESH_RUNS = (
      {"B3 sharded_fused_step": 4, "B0 collide_slabs": 1}),
 )
 FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
+# phase 9: velocity rel-L2 gates of f32 against f64 at 192^2 by horizon,
+# and the most the error may grow from the first horizon to the last
+# (tests/test_accuracy_horizon.py:50-73); the 2048^2 horizon
+ACCURACY_GATES = {500: 1e-5, 2000: 3e-5, 4000: 8e-5}
+ACCURACY_GROWTH = 12.0
+LONG_STEPS = 2048
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
@@ -177,7 +192,7 @@ F64_FLOP_S = 34e12
 # (probe_vpu.py).  Outside a checkout this import fails, and the script
 # exits non-zero before printing anything.
 sys.path.insert(0, REPO)
-from cuda_iblb_11_tpu_torch.probe_bw import card_line  # noqa: E402
+from cuda_iblb_11_tpu_torch.ops.probes import card_line  # noqa: E402
 from cuda_iblb_11_tpu_torch.probe_vpu import (  # noqa: E402
     COLLIDE_FORCED, COLLIDE_FREE, IB_POINT, MOMENTS,
 )
@@ -1719,6 +1734,124 @@ def phase_probes(record):
     return launches, rows
 
 
+# --- phase 9: accuracy on the card ----------------------------------------
+
+def chunk_launches(K, chunks):
+    """The launches of run_chunk on the single-device sim over consecutive
+    calls of `chunks` steps: each call runs pieces of at most 512 steps,
+    the largest multiple of K of each as super-steps (with the per-sub-step
+    leg: K B3 launches and one B4 each) and the rest one B2 a step."""
+    n = dict.fromkeys(KERNELS, 0)
+    for steps in chunks:
+        while steps > 0:
+            k = min(steps, 512)
+            if K > 1 and k >= K:
+                k -= k % K
+                n["B3 sharded_fused_step"] += k
+                n["B4 temporal_bulk"] += k // K
+            else:
+                n["B2 fused_step"] += k
+            steps -= k
+    return n
+
+
+class _Counted:
+    """A sim whose run_chunk counts the launches it makes: set to 0 just
+    before each call, read just after, summed over its calls."""
+
+    def __init__(self, sim):
+        self.sim, self.launches = sim, dict.fromkeys(KERNELS, 0)
+
+    def __getattr__(self, name):
+        return getattr(self.sim, name)
+
+    def run_chunk(self, state, n):
+        reset_launches()
+        state = self.sim.run_chunk(state, n)
+        for name, v in read_launches().items():
+            self.launches[name] += v
+        return state
+
+
+def _walk_counted(sims, horizons, label):
+    """accuracy_horizon.walk over `sims` with each sim's launches counted:
+    (velocity rel-L2 and flux rel by (pair, horizon), launches by sim)."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.accuracy_horizon import velocity, walk
+
+    sims = {k: _Counted(s) for k, s in sims.items()}
+    rows, states = walk(sims, horizons, label)
+    for k, st in states.items():
+        check(bool(torch.isfinite(velocity(sims[k], st)).all()),
+              f"{label} {k}: non-finite")
+    return ({(r["pair"], r["steps"]): r["rel_l2"] for r in rows},
+            {k: s.launches for k, s in sims.items()})
+
+
+def phase_accuracy(record):
+    """192^2 f32 single-step and auto against f64 at 500 / 2,000 / 4,000
+    steps, and 2048^2 auto against single-step after LONG_STEPS."""
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.accuracy_horizon import leg_sims
+
+    print("== phase 9: accuracy on the card", flush=True)
+    rows = {}
+    sims = leg_sims("192sq", DEVICE)
+    rc = {k: s.resolved_config() for k, s in sims.items()}
+    check((rc["f32_auto"]["temporal"], rc["f32_auto"]["band_leg"])
+          == (K, "per_substep"), f"192^2 auto resolved {rc['f32_auto']}")
+    horizons = tuple(ACCURACY_GATES)
+    t0 = time.perf_counter()
+    errs, launches = _walk_counted(sims, horizons, "phase 9, 192^2")
+    chunks = [b - a for a, b in zip((0,) + horizons, horizons)]
+    steps = horizons[-1]
+    zero = dict.fromkeys(KERNELS, 0)
+    want = {"f64_oracle": {**zero, "B2 fused_step": steps},
+            "f32": {**zero, "B2 fused_step": steps},
+            "f32_auto": chunk_launches(K, chunks)}
+    for k in sims:
+        check(launches[k] == want[k], f"192^2 {k} launches {launches[k]}, "
+                                      f"expected {want[k]}")
+    launched = {k: {n: v for n, v in c.items() if v}
+                for k, c in launches.items()}
+    print(f"  192^2 launches {launched} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for k in ("f32", "f32_auto"):
+        e = {n: errs[(f"{k}_vs_f64_oracle", n)] for n in horizons}
+        for n, gate in ACCURACY_GATES.items():
+            check(e[n] < gate, f"192^2 {k} at {n} steps: velocity rel-L2 "
+                               f"{e[n]} >= {gate}")
+        check(e[steps] < ACCURACY_GROWTH * e[horizons[0]],
+              f"192^2 {k}: error grew {e[steps] / e[horizons[0]]}x from "
+              f"{horizons[0]} to {steps} steps")
+    rows["192x192"] = dict(resolved=rc, launches=launches,
+                           rel=[dict(pair=p, steps=n, rel=v)
+                                for (p, n), v in errs.items()])
+    del sims
+
+    c, s, y = GRIDS[TIMING_GRID]
+    cfg = SimConfig(c_num=c, c_space=s, ydim=y)
+    sims = {"temporal 1": MucociliarySim(cfg, backend="cuda", device=DEVICE),
+            "temporal auto": MucociliarySim(cfg, backend="cuda",
+                                            device=DEVICE,
+                                            temporal="auto")}
+    errs, launches = _walk_counted(sims, (LONG_STEPS,),
+                                   f"phase 9, {TIMING_GRID}")
+    want = {"temporal 1": {**zero, "B2 fused_step": LONG_STEPS},
+            "temporal auto": {**zero, "B4 temporal_bulk": LONG_STEPS // K,
+                              "B5 band_super": LONG_STEPS // K}}
+    for k in sims:
+        check(launches[k] == want[k], f"{TIMING_GRID} {k} launches "
+                                      f"{launches[k]}, expected {want[k]}")
+    err = errs[("temporal auto_vs_temporal 1", LONG_STEPS)]
+    check(err <= 1e-5, f"{TIMING_GRID}: auto vs single velocity rel-L2 {err} "
+                       f"after {LONG_STEPS} steps")
+    rows[TIMING_GRID] = dict(steps=LONG_STEPS, velocity_rel_l2=err,
+                             launches=launches)
+    record["accuracy"] = rows
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
@@ -1759,6 +1892,7 @@ def main():
     phase_models(record)
     n_probes, probe_rows = phase_probes(record)
     timings.update(probe_rows)
+    phase_accuracy(record)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
     # 2048^2 temporal run, B6 on the 8192^2 x-tiled leg (a budgeted plan),

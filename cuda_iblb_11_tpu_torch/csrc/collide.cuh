@@ -56,9 +56,19 @@ Coeffs<T> make_coeffs(double tau, double tau2, int forcing_trt,
 // transcribed operation for operation).  kForced = false is the JAX
 // kernels' force-free form (gx = gy = None): no half-force velocity shift
 // and no source terms, as the temporal bulk collides its rows.
+//
+// Built with -DIBLB_IDENTITY_COLLIDE (ops/_kernels.VARIANTS, loaded only by
+// probe_vpu.py's A/B), collide_cell passes f through unchanged, as
+// scripts/probe_vpu.py:198-204 replaces _collide_tile: every kernel keeps
+// its movement, IB and flux (the flux sums moments9 of its own, outside
+// this function), and loses only the collide's arithmetic.
 template <typename T, bool kForced = true>
 __device__ __forceinline__ void collide_cell(const T (&f)[9], T gx, T gy,
                                              const Coeffs<T>& k, T (&f1)[9]) {
+#ifdef IBLB_IDENTITY_COLLIDE
+#pragma unroll
+  for (int d = 0; d < 9; ++d) f1[d] = f[d];
+#else
   const T p57 = f[5] - f[7];
   const T d68 = f[6] - f[8];
   const T fsum = f[0] + f[1] + f[2] + f[3] + f[4] + f[5] + f[6] + f[7] + f[8];
@@ -123,6 +133,7 @@ __device__ __forceinline__ void collide_cell(const T (&f)[9], T gx, T gy,
       f1[b] = f[b] - (even - odd);
     }
   }
+#endif
 }
 
 // Moments of nine post-stream values, in the order every kernel (and the

@@ -373,7 +373,12 @@ int launch_pass(const KStepArgs<T>& a, int threads, cudaStream_t st) {
       || threads > KStepLimits<T>::kThreads) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);
+  int smem = (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);
+#ifdef IBLB_KSTEP_MIN_SMEM
+  // probe_kstep.py's residency A/B (ops/_kernels.VARIANTS): each block
+  // asks for at least this much, so that fewer blocks fit on an SM
+  smem = smem > IBLB_KSTEP_MIN_SMEM ? smem : IBLB_KSTEP_MIN_SMEM;
+#endif
   const cudaError_t err = cudaFuncSetAttribute(
       kstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -12,6 +12,7 @@ CUDA tensor cannot be stepped, and the loader raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -31,6 +32,15 @@ CUDA_ROOT = "/usr/local/cuda"   # the toolkit's usual place
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-O3", "-std=c++17", "--fmad=true", "-Xptxas", "-v",
                      "-Xcompiler", "-fPIC"]
+# Builds of the same sources with extra flags, each under its own key, for
+# the probes' A/B runs only.  "identity_collide" turns collide_cell into a
+# copy of its input (csrc/collide.cuh): probe_vpu.py's identity-collide
+# A/B and probe_kstep.py's collide-free B4.  "one_block_per_sm" has each
+# K-step block ask for 120 KiB of shared memory (csrc/ghost_temporal.cu),
+# so that one block runs per SM: probe_kstep.py's residency A/B.
+ONE_BLOCK_SMEM = 120 * 1024
+VARIANTS = {"identity_collide": ["-DIBLB_IDENTITY_COLLIDE"],
+            "one_block_per_sm": [f"-DIBLB_KSTEP_MIN_SMEM={ONE_BLOCK_SMEM}"]}
 
 _P, _LL, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_double)
@@ -87,6 +97,7 @@ class KernelLibrary:
 
 
 _LIBRARY: KernelLibrary | None = None
+_VARIANT_LIBRARIES: dict[str, KernelLibrary] = {}
 
 
 def find_nvcc() -> str:
@@ -111,8 +122,18 @@ def _sources() -> list[str]:
                   + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
-def source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def nvcc_flags(variant: str | None = None) -> list[str]:
+    """The compile flags of the default build or of a VARIANTS entry."""
+    if variant is None:
+        return NVCC_FLAGS
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown kernel build variant {variant!r} "
+                         f"({', '.join(VARIANTS)})")
+    return NVCC_FLAGS + VARIANTS[variant]
+
+
+def source_digest(variant: str | None = None) -> str:
+    h = hashlib.sha256(" ".join(nvcc_flags(variant)).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
@@ -142,14 +163,14 @@ def _run(cmds: list[list[str]]) -> str:
     return "\n".join(logs)
 
 
-def _build(path: str) -> tuple[float, str]:
+def _build(path: str, flags: list[str]) -> tuple[float, str]:
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{path}.tmp{os.getpid()}"
     units = [p for p in _sources() if p.endswith(".cu")]
     objs = [f"{tag}.{os.path.basename(u)}.o" for u in units]
     t0 = time.perf_counter()
-    log = _run([[nvcc] + NVCC_FLAGS + ["-c", u, "-o", o]
+    log = _run([[nvcc] + flags + ["-c", u, "-o", o]
                 for u, o in zip(units, objs)])
     log += "\n" + _run([[nvcc] + ARCH + ["-shared", "-o", tag] + objs])
     seconds = time.perf_counter() - t0
@@ -161,20 +182,44 @@ def _build(path: str) -> tuple[float, str]:
     return seconds, log
 
 
-def load() -> KernelLibrary:
-    """The kernel library, built from csrc/ on first use in this checkout."""
+def _load_built(variant: str | None) -> KernelLibrary:
+    path = os.path.join(BUILD_DIR,
+                        f"libiblb_kernels_{source_digest(variant)}.so")
+    if os.path.exists(path):   # built earlier in this checkout
+        seconds = 0.0
+        with open(path + ".log") as fh:
+            log = fh.read()
+    else:
+        seconds, log = _build(path, nvcc_flags(variant))
+    return KernelLibrary(path, seconds, log)
+
+
+def load(variant: str | None = None) -> KernelLibrary:
+    """The kernel library, built from csrc/ on first use in this checkout;
+    with ``variant``, the build of VARIANTS[variant] (the wrappers launch
+    from it only inside ``using``)."""
     global _LIBRARY
+    if variant is not None:
+        if variant not in _VARIANT_LIBRARIES:
+            _VARIANT_LIBRARIES[variant] = _load_built(variant)
+        return _VARIANT_LIBRARIES[variant]
     if _LIBRARY is None:
-        path = os.path.join(BUILD_DIR,
-                            f"libiblb_kernels_{source_digest()}.so")
-        if os.path.exists(path):   # built earlier in this checkout
-            seconds = 0.0
-            with open(path + ".log") as fh:
-                log = fh.read()
-        else:
-            seconds, log = _build(path)
-        _LIBRARY = KernelLibrary(path, seconds, log)
+        _LIBRARY = _load_built(None)
     return _LIBRARY
+
+
+@contextlib.contextmanager
+def using(lib: KernelLibrary):
+    """Within the block every wrapper launches from ``lib`` (a variant
+    build, or another checkout's library); the library it launched from
+    before is restored on the way out."""
+    global _LIBRARY
+    saved = _LIBRARY
+    _LIBRARY = lib
+    try:
+        yield lib
+    finally:
+        _LIBRARY = saved
 
 
 # --- what every wrapper checks before a launch --------------------------

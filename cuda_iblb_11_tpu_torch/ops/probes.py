@@ -12,8 +12,12 @@ measures its own ceilings.
 and ``launch_floor_ms``, the device time of one launch of a kernel that
 does nothing, in a stream of back-to-back launches: the floor under a
 kernel as small as B0 (no TPU kernel; an instrument).  Beside them the
-helpers the probe scripts share: ``require_card``, ``device_ms`` and
-``l2_bytes`` (the card's L2 size, the budget of the budgeted band legs).
+helpers the probe and validation modules share: ``require_card``,
+``card_line`` (the card's name and power limit, which every record
+carries), ``device_ms``, ``l2_bytes`` (the card's L2 size, the budget
+of the budgeted band legs), and the records' plumbing: ``run_header``
+(where a record was made) and ``write_record`` (one entry merged into a
+record under build/validation/).
 
 Each wrapper launches its kernel for a float32 CUDA tensor (or raises) and
 counts the launch; for a CPU tensor it runs the plain torch version beside
@@ -28,6 +32,11 @@ from fmaf's steadily, about 2e-8 relative per link.
 
 from __future__ import annotations
 
+import contextlib
+import datetime
+import json
+import os
+import subprocess
 import time
 
 import torch
@@ -43,6 +52,9 @@ _A32 = float(torch.tensor(CHAIN_A, dtype=torch.float32))
 _B32 = float(torch.tensor(CHAIN_B, dtype=torch.float32))
 CHAIN_OPS = ("fma", "add", "mul")
 FLOPS_PER_LINK = {"fma": 2, "add": 1, "mul": 1}
+# where the validation and measurement modules write their records
+VALIDATION_DIR = os.path.join(os.path.dirname(_kernels.BUILD_DIR),
+                              "validation")
 
 
 def require_card(what: str) -> torch.device:
@@ -52,6 +64,43 @@ def require_card(what: str) -> torch.device:
         raise RuntimeError(f"{what} measures the card: no CUDA device is "
                            "visible (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    first card's line); raises where nvidia-smi fails."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_header(device) -> dict:
+    """What every record carries about where it ran: the card's name and
+    power limit as nvidia-smi gives them (None on the CPU), torch and CUDA
+    versions, the date."""
+    device = torch.device(device)
+    return {
+        "card": card_line() if device.type == "cuda" else None,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "date": datetime.date.today().isoformat(),
+    }
+
+
+def write_record(path, key, entry) -> None:
+    """Merge ``entry`` under ``key`` into the JSON object at ``path``
+    (created if missing)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    data = {}
+    with contextlib.suppress(FileNotFoundError):
+        with open(path) as fh:
+            data = json.load(fh)
+    data[key] = entry
+    with open(path, "w") as fh:
+        json.dump(data, fh, indent=1)
 
 
 def l2_bytes(device) -> int:

@@ -252,12 +252,8 @@ class Builds:
             self.libs["other"] = other_library(against)
 
     def run(self, name, fn):
-        saved = _kernels._LIBRARY
-        _kernels._LIBRARY = self.libs[name]
-        try:
+        with _kernels.using(self.libs[name]):
             return fn()
-        finally:
-            _kernels._LIBRARY = saved
 
 
 def _outputs(res):
@@ -275,11 +271,9 @@ def _compare(a, b) -> dict:
 
 def measure(against=None, reps=10, grids=GRIDS) -> dict:
     probes.require_card("probe_band_super")
-    from cuda_iblb_11_tpu_torch.probe_bw import card_line
-
     builds = Builds(against)
     other = "other" if against else "this"
-    rec = {"card": card_line(), "device": torch.cuda.get_device_name(0),
+    rec = {"card": probes.card_line(), "device": torch.cuda.get_device_name(0),
            "against": against, "cases": {}, "b6_vs_b5": {},
            "resources": kernel_resources(builds.libs["this"].build_log)}
     for label, calls in cases(grids):

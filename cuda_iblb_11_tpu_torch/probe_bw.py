@@ -34,7 +34,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 
 import torch
 
@@ -52,14 +51,6 @@ RUN_SWEEP = (8, 16)      # runs beside probes.RING_RUN, on 32 KiB tiles
 STEP_BYTES_PER_CELL = 72
 DEFAULT_JSON = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build", "probe_bw.json")
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def resident_blocks(threads: int) -> int:
@@ -198,7 +189,7 @@ def measure(reps: int = 3, calls: int = CALLS, check: bool = True) -> dict:
     best = max((n for n in table if n.startswith(("P2", "P3"))),
                key=lambda n: table[n]["median_gbs"])
     return {
-        "card": card_line(),
+        "card": probes.card_line(),
         "device": torch.cuda.get_device_name(0),
         "shape": f"{list(SHAPE)} f32, read + write "
                  f"({nbytes / 1e6:.1f} MB per call)",

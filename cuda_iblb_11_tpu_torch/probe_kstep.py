@@ -6,19 +6,19 @@ deviatoric; and f64 raw).
 
 1. The kernel as built, timed (ops/probes.device_ms: CUDA events after a
    spin kernel) at pass depths 8 (the driver's), 4 and 16, f32 and f64.
-2. The same sources with collide_cell replaced by a copy of its input,
-   built beside the library into build/kernels/probe_kstep/, at the same
-   depths in f32: the time of everything but the collide's arithmetic
-   (for this kernel, the identity-collide A/B of
-   scripts/probe_vpu.py:168-219).
+2. The same sources built with collide_cell a copy of its input
+   (ops/_kernels.VARIANTS["identity_collide"]), at the same depths in
+   f32: the time of everything but the collide's arithmetic (for this
+   kernel, the identity-collide A/B of scripts/probe_vpu.py:168-219).
 3. Residency, at depth 8 in f32: the driver's CUDA blocks (1,024
    threads, one per SM) against blocks of at most 512 threads (narrower
    strips, two per SM: the same 32 warps in two barrier domains), and each
-   again from a build that asks for 120 KiB of shared memory a block, so
-   that one block runs per SM.  If the 512-thread blocks take about twice
-   as long one per SM as two per SM, an SM does two blocks' rows in the
-   time of one: the row iteration waits on latency and the barrier, not
-   on instruction issue.  If about as long, the SM's issue slots are full.
+   again from the build whose blocks ask for 120 KiB of shared memory
+   (VARIANTS["one_block_per_sm"]), so that one block runs per SM.  If the
+   512-thread blocks take about twice as long one per SM as two per SM,
+   an SM does two blocks' rows in the time of one: the row iteration
+   waits on latency and the barrier, not on instruction issue.  If about
+   as long, the SM's issue slots are full.
 4. The kernel's registers (ptxas) and its SASS instruction mix
    (cuobjdump), float and double, and the blocks per SM that the
    registers, threads and shared memory allow.
@@ -55,57 +55,6 @@ THREAD_CAPS = (1024, 512)
 # an H100 SM: registers, warps
 REGS_SM = 65_536
 WARPS_SM = 64
-# what each A/B build changes in ghost_temporal.cu
-_SMEM = "const int smem = (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);"
-ONE_BLOCK_SMEM = 120 * 1024
-VARIANTS = {
-    # the collide's arithmetic taken out: each collide becomes a copy
-    "collide_as_copy": {
-        "collide_cell<T, false>(f, T(0.0), T(0.0), a.k, f1);":
-            "for (int d = 0; d < 9; ++d) f1[d] = f[d];",
-        "collide_cell<T, false>(p, T(0.0), T(0.0), a.k, f1);":
-            "for (int d = 0; d < 9; ++d) f1[d] = p[d];",
-    },
-    # one CUDA block per SM: each asks for over half an SM's shared memory
-    "one_block_per_sm": {
-        _SMEM: "const int smem = max((a.kp * RING + STAGES) * 9 * a.wc"
-               f" * (int)sizeof(T), {ONE_BLOCK_SMEM});",
-    },
-}
-
-
-def variant_libraries() -> dict:
-    """The kernel library built from csrc/ once per VARIANTS entry, into
-    build/kernels/probe_kstep/<name>/, all compiles started together."""
-    nvcc = _kernels.find_nvcc()
-    root = os.path.join(_kernels.BUILD_DIR, "probe_kstep")
-    shutil.rmtree(root, ignore_errors=True)
-    cmds, links = [], {}
-    for name, edits in VARIANTS.items():
-        out = os.path.join(root, name)
-        src = os.path.join(out, "src")
-        shutil.copytree(_kernels.CSRC, src)
-        path = os.path.join(src, "ghost_temporal.cu")
-        with open(path) as fh:
-            text = fh.read()
-        for old, new in edits.items():
-            if old not in text:
-                raise RuntimeError(f"probe_kstep: {old!r} not in {path}")
-            text = text.replace(old, new)
-        with open(path, "w") as fh:
-            fh.write(text)
-        units = sorted(u for u in os.listdir(src) if u.endswith(".cu"))
-        objs = [os.path.join(out, u + ".o") for u in units]
-        cmds += [[nvcc] + _kernels.NVCC_FLAGS
-                 + ["-c", os.path.join(src, u), "-o", o]
-                 for u, o in zip(units, objs)]
-        links[name] = (os.path.join(out, f"libiblb_kernels_{name}.so"),
-                       objs)
-    log = _kernels._run(cmds)
-    log += _kernels._run([[nvcc] + _kernels.ARCH + ["-shared", "-o", lib]
-                          + objs for lib, objs in links.values()])
-    return {name: _kernels.KernelLibrary(lib, 0.0, log)
-            for name, (lib, _) in links.items()}
 
 
 def bulk_call(dtype, storage):
@@ -173,16 +122,12 @@ def residency(call, block, reps, libs, registers) -> dict:
     rows = {}
     for cap in THREAD_CAPS:
         for name in ("kernel", "one_block_per_sm"):
-            if name != "kernel":
-                _kernels._LIBRARY = libs[name]
-            try:
+            with _kernels.using(libs[name]):
                 row = time_geometry(call, block, reps, torch.float32, 8,
                                     cap)
-            finally:
-                _kernels._LIBRARY = libs["kernel"]
             smem = row["smem_bytes"]
             if name != "kernel":
-                smem = max(smem, ONE_BLOCK_SMEM)
+                smem = max(smem, _kernels.ONE_BLOCK_SMEM)
             per_sm = blocks_per_sm(row["threads"], smem, registers)
             row.update(blocks_per_sm=per_sm,
                        warps_per_sm=per_sm * -(-row["threads"] // 32))
@@ -246,24 +191,21 @@ def profile_call(call) -> dict:
 
 def measure(reps: int = 20) -> dict:
     probes.require_card("probe_kstep")
-    from cuda_iblb_11_tpu_torch.probe_bw import card_line
-
     call64, block = bulk_call(torch.float64, "raw")
     f64 = time_depths(call64, block, reps, torch.float64)
     del call64
     call, block = bulk_call(torch.float32, "deviatoric")
     lib = _kernels.load()
-    rec = {"card": card_line(), "device": torch.cuda.get_device_name(0),
+    rec = {"card": probes.card_line(), "device": torch.cuda.get_device_name(0),
            "case": "B4 2048^2, K = 16, f32 deviatoric (f64: raw)",
            "kernel": time_depths(call, block, reps), "kernel_f64": f64,
            "build": kernel_build_info(lib),
            "profile_ms_per_call": profile_call(call)}
-    libs = dict(variant_libraries(), kernel=lib)
-    _kernels._LIBRARY = libs["collide_as_copy"]
-    try:
+    libs = {"kernel": lib, "identity_collide":
+            _kernels.load("identity_collide"),
+            "one_block_per_sm": _kernels.load("one_block_per_sm")}
+    with _kernels.using(libs["identity_collide"]):
         rec["collide_as_copy"] = time_depths(call, block, reps)
-    finally:
-        _kernels._LIBRARY = lib
     for kb in DEPTHS:
         rec["kernel"][kb]["share_without_collide"] = (
             rec["collide_as_copy"][kb]["ms"] / rec["kernel"][kb]["ms"])

@@ -40,7 +40,6 @@ from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
 from cuda_iblb_11_tpu_torch.ops import probes
 from cuda_iblb_11_tpu_torch.ops.temporal import plan_sharded, plan_temporal
 from cuda_iblb_11_tpu_torch.parallel import ShardedTemporalSim, make_mesh
-from cuda_iblb_11_tpu_torch.probe_bw import card_line
 from cuda_iblb_11_tpu_torch.profile_step import profile_sim
 
 K = 16
@@ -121,7 +120,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = probes.require_card("probe_legs")
     budget = probes.l2_bytes(device)
-    record = dict(card=card_line(), torch=torch.__version__,
+    record = dict(card=probes.card_line(), torch=torch.__version__,
                   l2_bytes=budget, pairs=[])
     print(f"card: {record['card']}; L2 {budget} bytes", flush=True)
     for name in args.pairs.split(","):

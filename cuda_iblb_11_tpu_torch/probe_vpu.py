@@ -18,9 +18,20 @@ the port of scripts/probe_vpu.py.
    measured in the same call, and the useful rate it implies (MLUPS x the
    force-free collide's operations, since the K-step bulk takes almost
    every cell) as a share of the measured fma rate.
+4. The identity-collide A/B (scripts/probe_vpu.py:168-219), run by
+   main() after the three above: the same 2048^2 auto path (K = 16, B5 +
+   B4) from the default library and from a second build of the same
+   sources with -DIBLB_IDENTITY_COLLIDE (ops/_kernels.VARIANTS, under its
+   own key in build/kernels/), whose collide_cell passes f through.  Each
+   build: MLUPS as the best of three timed runs of 6,144 steps after a
+   warm-up of the same length (the JAX script's measure), and the device
+   busy time per step from profile_step.profile_sim.  The split per site
+   update: collide = full - identity, movement and glue = identity, in ps
+   from the host clock and from the device's busy time (the 2048^2 step
+   leaves the card idle part of the time, so the host figures are the
+   upper ones).
 Output: build/probe_vpu.json by default.  Where no card is visible it
-raises.  The TPU script's identity-collide A/B patches the kernels'
-collide; it is no kernel of its own and stays a ROADMAP item.
+raises.
 """
 
 from __future__ import annotations
@@ -139,16 +150,72 @@ def port_mlups(steps: int) -> dict:
                 band_leg=rc["band_leg"])
 
 
+AB_STEPS = 6144     # scripts/probe_vpu.py:186
+AB_PROFILE_STEPS = 512
+
+
+def _ab_run(steps: int) -> dict:
+    """One build's leg of the A/B: wall MLUPS (best of three runs of
+    ``steps`` after a warm-up of the same length) and device busy ms per
+    step of the 2048^2 auto path, with the kernels of the library in use
+    (``_kernels.using``)."""
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.profile_step import profile_sim
+
+    cfg = SimConfig(c_num=16, c_space=128, ydim=2048)
+    sim = MucociliarySim(cfg, temporal="auto")
+    st = sim.run_chunk(sim.init_state(), steps)
+    float(st.q)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st = sim.run_chunk(st, steps)
+        float(st.q)
+        best = min(best, time.perf_counter() - t0)
+    prof = profile_sim(sim, AB_PROFILE_STEPS)
+    rc = sim.resolved_config()
+    return dict(mlups=cfg.size * steps / best / 1e6,
+                device_busy_ms_per_step=prof["device_busy_ms"],
+                wall_ms_per_step_profiled_run=prof["wall_ms"],
+                cells=cfg.size, temporal=rc["temporal"],
+                band_leg=rc["band_leg"], finite=bool(torch.isfinite(
+                    st.f).all()))
+
+
+def identity_collide_ab(steps: int = AB_STEPS) -> dict:
+    """The identity-collide A/B (module doc, 4): both builds' legs and the
+    split of a site update into collide and movement plus glue."""
+    from cuda_iblb_11_tpu_torch.ops import _kernels
+
+    probes.require_card("probe_vpu")
+    full = _ab_run(steps)
+    with _kernels.using(_kernels.load("identity_collide")):
+        ident = _ab_run(steps)
+    cells = full["cells"]
+    ps_full, ps_id = 1e6 / full["mlups"], 1e6 / ident["mlups"]
+    dev_full = full["device_busy_ms_per_step"] * 1e9 / cells
+    dev_id = ident["device_busy_ms_per_step"] * 1e9 / cells
+    return {
+        "case": "2048^2, 16 cilia, f32, temporal auto",
+        "steps": steps, "profile_steps": AB_PROFILE_STEPS,
+        "variant_flags": _kernels.VARIANTS["identity_collide"],
+        "full": full, "identity": ident,
+        "full_mlups": full["mlups"], "identity_mlups": ident["mlups"],
+        "collide_ps_per_site": ps_full - ps_id,
+        "movement_ps_per_site": ps_id,
+        "device_collide_ps_per_site": dev_full - dev_id,
+        "device_movement_ps_per_site": dev_id,
+    }
+
+
 def measure(steps: int = 512, calls: int = CALLS) -> dict:
     probes.require_card("probe_vpu")
     rates = chain_rates(calls)
     fma = rates["fma"]["tflops"]
     step = port_mlups(steps)
     useful = step["mlups"] * 1e6 * COLLIDE_FREE / 1e12
-    from cuda_iblb_11_tpu_torch.probe_bw import card_line
-
     return {
-        "card": card_line(),
+        "card": probes.card_line(),
         "device": torch.cuda.get_device_name(0),
         "method": f"slope between {R1} and {R2} dependent links, "
                   f"{list(SHAPE)} f32, one thread per element, "
@@ -178,6 +245,14 @@ def main(argv=None) -> int:
     print(f"port 2048^2 auto: {rec['port_2048']['mlups']:.0f} MLUPS -> "
           f"{rec['useful_tflops_at_port_mlups']:.2f} TFLOP/s useful, "
           f"{rec['useful_share_of_measured_fma']:.1%} of the fma rate")
+    ab = rec["identity_collide_ab"] = identity_collide_ab()
+    print(f"identity-collide A/B: full {ab['full_mlups']:.0f} MLUPS "
+          f"({1e6 / ab['full_mlups']:.2f} ps/site), identity "
+          f"{ab['identity_mlups']:.0f} MLUPS -> collide "
+          f"{ab['collide_ps_per_site']:.2f} ps/site, movement+glue "
+          f"{ab['movement_ps_per_site']:.2f} ps/site; device busy: collide "
+          f"{ab['device_collide_ps_per_site']:.2f}, movement+glue "
+          f"{ab['device_movement_ps_per_site']:.2f} ps/site")
     print(f"card: {rec['card']}")
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
     with open(args.json, "w") as fh:

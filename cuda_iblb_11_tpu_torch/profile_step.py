@@ -31,7 +31,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -40,6 +39,7 @@ from torch.autograd import DeviceType
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
+from cuda_iblb_11_tpu_torch.ops import probes
 from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
 
 # name -> (c_num, c_space, ydim); SimConfig's defaults otherwise
@@ -122,15 +122,6 @@ def profile_sim(sim: MucociliarySim, steps: int) -> dict:
     )
 
 
-def _card():
-    if not torch.cuda.is_available():
-        return None
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grids", default="288x192,2048x2048",
@@ -147,7 +138,8 @@ def main(argv=None) -> int:
 
     temporal = args.temporal if args.temporal == "auto" \
         else int(args.temporal)
-    record = dict(card=_card(), torch=torch.__version__, rows=[])
+    record = dict(card=probes.card_line() if torch.cuda.is_available()
+                  else None, torch=torch.__version__, rows=[])
     print(f"card: {record['card']}", flush=True)
     for name in args.grids.split(","):
         c, s, y = GRIDS[name]

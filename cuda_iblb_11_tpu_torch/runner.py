@@ -118,12 +118,25 @@ class _SnapshotPipeline:
                 self._pool.shutdown(wait=True)
 
 
+# ``--overlap auto`` writes text snapshots inline on hosts with at most
+# this many usable cores, where formatting competes with the step loop for
+# the only core (the JAX package's rule, measured on its 1-core TPU host,
+# validation/bigdata_e2e.json), and overlapped everywhere else.  The card
+# host's record, cuda_iblb_11_tpu_torch/records/bigdata_e2e.json
+# (measure_bigdata.py: 2048^2 f32 at temporal auto, 10,000 steps, 10
+# snapshot pairs, each configuration twice in turns, every write timed,
+# on an 8-core host with an NVIDIA H100 80GB HBM3 at 700.00 W), holds
+# both formats faster overlapped: an overlapped run lasts its writes plus
+# 0.1-0.2 s (text) or 0.4-0.5 s (npz), a serial run its writes plus
+# 0.9-1.0 s, the compute the overlap hides.  The text writes themselves
+# vary by up to 10% in CPU time between runs, in both settings alike, so
+# whole text runs fall in either order.
+SERIAL_TEXT_MAX_CORES = 2
+
+
 def _resolve_overlap(overlap, snapshot_format: str):
     """``--overlap auto``: overlapped, except text snapshots on a host with
-    at most 2 usable cores, where formatting competes with the step loop.
-    The policy is the JAX package's (measured there on its TPU host,
-    validation/bigdata_e2e.json); it has not been measured on a GPU host.
-    Returns (bool, reason)."""
+    at most SERIAL_TEXT_MAX_CORES usable cores.  Returns (bool, reason)."""
     if isinstance(overlap, bool):
         return overlap, "requested"
     if overlap == "on":
@@ -135,7 +148,7 @@ def _resolve_overlap(overlap, snapshot_format: str):
                          f"auto/on/off, got {overlap!r}")
     cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
              else os.cpu_count() or 1)
-    if snapshot_format == "dat" and cores <= 2:
+    if snapshot_format == "dat" and cores <= SERIAL_TEXT_MAX_CORES:
         return False, (f"auto: serial — text formatting on a {cores}-core "
                        f"host competes with the step loop")
     return True, "auto: overlapped — the snapshot write rides under the " \

@@ -7,7 +7,10 @@ ragged widths, in f64 and with NaN ghosts, and the model's cuda backend
 against its torch backend, single-step, temporal (all three band legs),
 sharded (shards sharing the card, every leg) and in the quirk mode (two
 runs bit for bit; f64 at 2048^2 within 1e-12), the channel through B2h,
-and a caller's TF32 setting kept out of the IB.  They carry the
+a caller's TF32 setting kept out of the IB, the f32-vs-f64 velocity gates
+at 192^2 over 4,000 steps (single-step and auto), B2 from the
+identity-collide build streaming without colliding, and B4 from the
+one-block-per-SM build equal to the default build's.  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -662,6 +665,73 @@ def test_band_super_f32_velocity_error_500_steps(card):
     assert band_super.launches - n5 == 500 // 4
     assert torch.isfinite(u32).all()
     assert rel_l2(u32, u64) < 1.0e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temporal", [1, "auto"])
+def test_f32_velocity_error_500_2000_4000_steps(card, temporal):
+    # tests/test_accuracy_horizon.py:50-73 on the card: 192^2 with 4
+    # cilia, f32 (storage auto) single-step (B2) or at auto (K = 16, the
+    # per-sub-step leg: B3 + the torch IB + B4) against f64 raw
+    # single-step (B2 in f64)
+    from cuda_iblb_11_tpu_torch.accuracy_horizon import velocity
+
+    cfg64 = SimConfig(c_num=4, c_space=48, dtype="float64", storage="raw")
+    s64 = MucociliarySim(cfg64, device=card)
+    s32 = MucociliarySim(cfg64.replace(dtype="float32", storage="auto"),
+                         device=card, temporal=temporal)
+    assert (s32.temporal, s32.resolved_config()["band_leg"]) == (
+        (1, "single_step") if temporal == 1 else (16, "per_substep"))
+    st64, st32 = s64.init_state(), s32.init_state()
+    errs = {}
+    for n, gate in ((500, 1e-5), (2000, 3e-5), (4000, 8e-5)):
+        st64 = s64.run_chunk(st64, n - st64.it)
+        st32 = s32.run_chunk(st32, n - st32.it)
+        errs[n] = rel_l2(velocity(s32, st32), velocity(s64, st64))
+        assert errs[n] < gate, errs
+    assert errs[4000] < 12.0 * errs[500], errs
+
+
+@pytest.mark.cuda
+def test_identity_collide_build_only_streams(card):
+    # the identity-collide variant (probe_vpu.py's A/B): B2 from that
+    # build streams f without colliding it, so its f is the plain
+    # streaming of the input, bit for bit; the default library collides
+    from cuda_iblb_11_tpu_torch.ops import _kernels
+
+    cfg = SimConfig(**GRIDS["channel_288x192"])
+    f, force = random_inputs(cfg, "raw", torch.float64, card, seed=3)
+    want = ref.stream(f, ref.REFERENCE_WALLS)
+    with _kernels.using(_kernels.load("identity_collide")):
+        got = fused_substep(f, force, cfg, ref.REFERENCE_WALLS, "trt_split",
+                            "raw")[0]
+    full = fused_substep(f, force, cfg, ref.REFERENCE_WALLS, "trt_split",
+                         "raw")[0]
+    torch.cuda.synchronize()
+    assert _kernels.load("identity_collide").path != _kernels.load().path
+    assert torch.equal(got, want)
+    assert not torch.equal(full, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_block_per_sm_build_is_the_same_b4(card, dtype):
+    # probe_kstep.py's residency variant only asks for more shared memory
+    # per block: B4 from it equals the default build's bit for bit
+    from cuda_iblb_11_tpu_torch.ops import _kernels
+
+    cfg = SimConfig(**SMALL)
+    band, K = cfg.force_band, 5
+    f, _ = random_inputs(cfg, "raw", dtype, card, seed=3)
+    bhalos = f[None, :, band - 1].repeat(K, 1, 1).contiguous()
+    want = temporal_bulk(f[:, band:], bhalos, cfg, ref.REFERENCE_WALLS,
+                         "trt_split", "raw")
+    with _kernels.using(_kernels.load("one_block_per_sm")):
+        got = temporal_bulk(f[:, band:], bhalos, cfg, ref.REFERENCE_WALLS,
+                            "trt_split", "raw")
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # --- B0, B7, B8 and the sharded path -----------------------------------------

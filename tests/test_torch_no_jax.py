@@ -1,8 +1,8 @@
 """The torch port imports no JAX: a static scan of its sources (the sharded
-slice's modules and the probes, the validation models and the quirk IB of
-the last slice among them), and a fresh interpreter that imports it and
-runs two steps on the CPU, three on a (2, 2) mesh, and two of each
-validation model and of the quirk mode."""
+slice's modules and the probes, the validation models, the quirk IB and
+the validation modules among them), and a fresh interpreter that imports
+it (the validation modules too) and runs two steps on the CPU, three on a
+(2, 2) mesh, and two of each validation model and of the quirk mode."""
 
 import ast
 import os
@@ -57,7 +57,9 @@ def test_port_sources_import_no_jax():
     assert {"parallel/sharded.py", "ops/collide_rows.py",
             "ops/ghost_temporal.py", "ops/band_super_xsharded.py",
             "ops/collide_stream.py", "ops/probes.py", "models/channel.py",
-            "models/cavity.py", "probe_bw.py", "probe_vpu.py"} <= names
+            "models/cavity.py", "probe_bw.py", "probe_vpu.py",
+            "accuracy_horizon.py", "make_fullbeat_golden.py", "probe_f64.py",
+            "validate_cavity.py", "measure_bigdata.py"} <= names
 
 
 _CHILD = r"""
@@ -77,6 +79,9 @@ sim = ShardedTemporalSim(cfg, make_mesh(2, 2, devices=["cpu"]), temporal=2)
 st = sim.run_chunk(sim.init_state(), 3)
 assert st.it == 3
 from cuda_iblb_11_tpu_torch import probe_bw, probe_vpu
+from cuda_iblb_11_tpu_torch import (accuracy_horizon, make_fullbeat_golden,
+                                    measure_bigdata, probe_f64,
+                                    validate_cavity)
 from cuda_iblb_11_tpu_torch.models.cavity import LidDrivenCavity
 from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
 ch = PoiseuilleChannel(8, 16, device="cpu")

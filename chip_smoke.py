@@ -126,7 +126,18 @@ Phases; any failure exits non-zero before the final line:
      500-step one (tests/test_accuracy_horizon.py:50-73), exact launch
      counts of each run; then 2048 x 2048 (16 cilia) temporal "auto" (B5 +
      B4) against temporal 1 (B2) after 2,048 steps, velocity rel-L2
-     <= 1e-5, exact launch counts.
+     <= 1e-5, exact launch counts;
+ 10. the reference's experiments on the card: two metachrony sweep points
+     (sweep_metachrony.run_point: 2048 x 2048, 16 cilia, c_fraction 4 and
+     16), 4,000 steps in 2 chunks, in f32 and f64: exactly 250 B5 and 250
+     B4 launches and no B2 a run on band_super_whole at K = 16, every
+     chunk finite, f32 Q within 2e-4 of f64 (the runs read 1.1e-5 and
+     3.0e-5), the two c_fractions' Q apart by more than that, ms/step and
+     MLUPS; then validate_flux.run_leg at
+     the reference channel (288 x 192, 6 cilia, temporal 1), 2,000 steps
+     in 20 samples: 2,000 B2 launches, every 100-step sample within 1e-9
+     (f64) and 2e-5 (f32) of validation/flux_early_f64_c6.dat, in lattice
+     units.
 
 The launch counts of each path are set to 0 just before it and read just
 after.  The last lines are the kernels JSON line, the card's name and power
@@ -180,6 +191,13 @@ FLUX_ITS = (500, 1000, 1500, 2000)   # rows held against the f64 golden
 ACCURACY_GATES = {500: 1e-5, 2000: 3e-5, 4000: 8e-5}
 ACCURACY_GROWTH = 12.0
 LONG_STEPS = 2048
+# phase 10: the sweep's points, steps and chunks, its f32-vs-f64 gate; the
+# flux curve's steps, samples and gates against the early f64 golden
+SWEEP_POINTS = (4, 16)
+SWEEP_STEPS, SWEEP_CHUNKS = 4000, 2
+SWEEP_GATE = 2e-4
+FLUX_STEPS, FLUX_SAMPLES = 2000, 20
+FLUX_GATES = {"float64": 1e-9, "float32": 2e-5}
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
@@ -1852,6 +1870,64 @@ def phase_accuracy(record):
     record["accuracy"] = rows
 
 
+# --- phase 10: the reference's experiments -------------------------------
+
+def phase_experiments(record):
+    """Two metachrony sweep points at 2048^2 in f32 and f64, and the
+    reference channel's flux curve against the early f64 golden."""
+    from cuda_iblb_11_tpu_torch import sweep_metachrony, validate_flux
+
+    print("== phase 10: the reference's experiments on the card", flush=True)
+    zero = dict.fromkeys(KERNELS, 0)
+    rows, q = {}, {}
+    want = {**zero, "B5 band_super": SWEEP_STEPS // K,
+            "B4 temporal_bulk": SWEEP_STEPS // K}
+    for dt in ("float32", "float64"):
+        for cf in SWEEP_POINTS:
+            name = f"sweep {dt} c_fraction {cf}"
+            reset_launches()
+            p = sweep_metachrony.run_point(cf, dt, DEVICE, "cuda",
+                                           SWEEP_STEPS, SWEEP_CHUNKS)
+            n = read_launches()
+            check(n == want, f"{name}: launches {n}, expected {want}")
+            check((p["sim"]["band_leg"], p["sim"]["temporal"])
+                  == ("band_super_whole", K), f"{name}: {p['sim']}")
+            check(p["finite"], f"{name}: non-finite f")
+            q[(dt, cf)] = p["q_per_beat"]
+            rows[name] = p
+            print(f"  {name}: Q {p['q_per_beat']:.9g} after {SWEEP_STEPS} "
+                  f"steps, {p['ms_per_step']:.4f} ms/step, "
+                  f"{p['mlups']:.1f} MLUPS", flush=True)
+    for cf in SWEEP_POINTS:
+        rel = abs(q[("float32", cf)] - q[("float64", cf)]) / abs(
+            q[("float64", cf)])
+        check(rel <= SWEEP_GATE, f"sweep c_fraction {cf}: f32 vs f64 {rel}")
+        rows[f"sweep c_fraction {cf} f32_vs_f64"] = rel
+        print(f"  sweep c_fraction {cf}: f32 vs f64 {rel:.3e}", flush=True)
+    a, b = (q[("float64", cf)] for cf in SWEEP_POINTS)
+    check(abs(a - b) > SWEEP_GATE * abs(b),
+          f"sweep: c_fraction {SWEEP_POINTS} give the same Q ({a}, {b})")
+    for dt in ("float64", "float32"):
+        name = f"flux curve {dt}"
+        reset_launches()
+        leg = validate_flux.run_leg(dt, FLUX_STEPS, FLUX_SAMPLES, DEVICE,
+                                    "cuda")
+        n = read_launches()
+        check(n == {**zero, "B2 fused_step": FLUX_STEPS},
+              f"{name}: launches {n}")
+        check(leg["finite"], f"{name}: non-finite f")
+        early = leg["early"]
+        check([r["it"] for r in early["rows"]] == list(range(
+            100, FLUX_STEPS + 1, 100)), f"{name}: samples {early['rows']}")
+        check(early["max_rel"] <= FLUX_GATES[dt],
+              f"{name}: {early['max_rel']} from {early['golden']}")
+        rows[name] = leg
+        print(f"  {name}: largest rel from {early['golden']} "
+              f"{early['max_rel']:.3e} (gate {FLUX_GATES[dt]}), "
+              f"{leg['ms_per_step']:.4f} ms/step", flush=True)
+    record["experiments"] = rows
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
@@ -1893,6 +1969,7 @@ def main():
     n_probes, probe_rows = phase_probes(record)
     timings.update(probe_rows)
     phase_accuracy(record)
+    phase_experiments(record)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
     # 2048^2 temporal run, B6 on the 8192^2 x-tiled leg (a budgeted plan),

@@ -15,9 +15,10 @@ kernel as small as B0 (no TPU kernel; an instrument).  Beside them the
 helpers the probe and validation modules share: ``require_card``,
 ``card_line`` (the card's name and power limit, which every record
 carries), ``device_ms``, ``l2_bytes`` (the card's L2 size, the budget
-of the budgeted band legs), and the records' plumbing: ``run_header``
+of the budgeted band legs), the records' plumbing: ``run_header``
 (where a record was made) and ``write_record`` (one entry merged into a
-record under build/validation/).
+record under build/validation/), and ``beat_loop``, the one chunked beat
+loop of the validation routes (validate_flux.py, sweep_metachrony.py).
 
 Each wrapper launches its kernel for a float32 CUDA tensor (or raises) and
 counts the launch; for a CPU tensor it runs the plain torch version beside
@@ -52,6 +53,8 @@ _A32 = float(torch.tensor(CHAIN_A, dtype=torch.float32))
 _B32 = float(torch.tensor(CHAIN_B, dtype=torch.float32))
 CHAIN_OPS = ("fma", "add", "mul")
 FLOPS_PER_LINK = {"fma": 2, "add": 1, "mul": 1}
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 # where the validation and measurement modules write their records
 VALIDATION_DIR = os.path.join(os.path.dirname(_kernels.BUILD_DIR),
                               "validation")
@@ -101,6 +104,41 @@ def write_record(path, key, entry) -> None:
     data[key] = entry
     with open(path, "w") as fh:
         json.dump(data, fh, indent=1)
+
+
+def beat_loop(sim, chunks, report=None):
+    """Run ``sim`` from its initial state over consecutive chunks of
+    steps.  After each chunk: the iteration, Q in lattice units and
+    whether f is finite, passed to ``report`` if given.  Returns (state,
+    samples, seconds of the chunks, launches of B2, B4 and B5 in them: the
+    kernels the routes check).  The launch counters are read, never reset;
+    the kernel library is built or loaded before the first chunk's clock
+    starts."""
+    from cuda_iblb_11_tpu_torch.ops.band_super import band_super
+    from cuda_iblb_11_tpu_torch.ops.fused_step import fused_substep
+    from cuda_iblb_11_tpu_torch.ops.temporal_bulk import temporal_bulk
+
+    counted = {"B2 fused_step": fused_substep,
+               "B4 temporal_bulk": temporal_bulk,
+               "B5 band_super": band_super}
+    if sim.backend == "cuda":
+        _kernels.load()
+    state = sim.init_state()
+    samples, launches, seconds = [], dict.fromkeys(counted, 0), 0.0
+    for n in chunks:
+        before = {k: w.launches for k, w in counted.items()}
+        t0 = time.perf_counter()
+        state = sim.run_chunk(state, n)
+        q = float(state.q)                  # waits for the chunk
+        seconds += time.perf_counter() - t0
+        for k, w in counted.items():
+            launches[k] += w.launches - before[k]
+        sample = {"it": int(state.it), "q": q,
+                  "finite": bool(torch.isfinite(state.f).all())}
+        samples.append(sample)
+        if report is not None:
+            report(sample)
+    return state, samples, seconds, launches
 
 
 def l2_bytes(device) -> int:

@@ -9,8 +9,11 @@ sharded (shards sharing the card, every leg) and in the quirk mode (two
 runs bit for bit; f64 at 2048^2 within 1e-12), the channel through B2h,
 a caller's TF32 setting kept out of the IB, the f32-vs-f64 velocity gates
 at 192^2 over 4,000 steps (single-step and auto), B2 from the
-identity-collide build streaming without colliding, and B4 from the
-one-block-per-SM build equal to the default build's.  They carry the
+identity-collide build streaming without colliding, B4 from the
+one-block-per-SM build equal to the default build's, a 2048^2 metachrony
+sweep point in f32 against f64 (1e-3) with its exact B5/B4 launches and
+its refusals, and validate_flux's f64 early curve against the JAX f64
+oracle (1e-9).  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -1387,3 +1390,54 @@ def test_probe_wrappers_refuse_bad_inputs(card):
         probes.probe_chain(x.double(), 10)
     assert (probes.probe_copy.launches, probes.probe_ring_copy.launches,
             probes.probe_chain.launches) == n
+
+
+# --- the reference's experiments (sweep_metachrony.py, validate_flux.py)
+
+@pytest.mark.cuda
+def test_sweep_point_f32_against_f64_with_exact_launches(card):
+    # one 2048^2 point (16 cilia, c_fraction 4) over 512 steps in 2 chunks
+    # on the whole band super-step: 32 B5 and 32 B4 launches, no B2, and
+    # f32 within 1e-3 of f64
+    from cuda_iblb_11_tpu_torch import sweep_metachrony as sm
+
+    q = {}
+    for dt in ("float32", "float64"):
+        p = sm.run_point(4, dt, card, steps=512, chunks=2)
+        assert p["launches"] == {"B5 band_super": 32, "B4 temporal_bulk": 32,
+                                 "B2 fused_step": 0}
+        assert (p["sim"]["band_leg"], p["sim"]["temporal"]) == (
+            "band_super_whole", 16)
+        assert p["sim"]["backend"] == "cuda" and p["finite"]
+        q[dt] = p["q_per_beat"]
+    assert abs(q["float32"] - q["float64"]) <= 1e-3 * abs(q["float64"])
+
+
+@pytest.mark.cuda
+def test_sweep_point_refuses_another_path(card):
+    # both refuse before a step is taken
+    from cuda_iblb_11_tpu_torch import sweep_metachrony as sm
+
+    n = (band_super.launches, temporal_bulk.launches, fused_substep.launches)
+    with pytest.raises(ValueError, match="multiple of K"):
+        sm.run_point(4, "float32", card, steps=520, chunks=2)
+    # 192^2 with 4 cilia 48 apart: K = 16 takes the per-sub-step leg
+    with pytest.raises(RuntimeError, match="per_substep"):
+        sm.run_point(4, "float32", card, steps=512, chunks=2, c_num=4,
+                     c_space=48, ydim=192)
+    assert (band_super.launches, temporal_bulk.launches,
+            fused_substep.launches) == n
+
+
+@pytest.mark.cuda
+def test_validate_flux_f64_early_curve_against_the_golden(card):
+    # the reference channel in f64 on B2 (raw storage), 2,000 steps:
+    # every 100-step sample within 1e-9 of the JAX f64 oracle's
+    from cuda_iblb_11_tpu_torch import validate_flux
+
+    leg = validate_flux.run_leg("float64", 2000, 20, card)
+    assert leg["launches"]["B2 fused_step"] == 2000
+    assert leg["sim"]["storage"] == "raw" and leg["sim"]["temporal"] == 1
+    rows = leg["early"]["rows"]
+    assert [r["it"] for r in rows] == list(range(100, 2001, 100))
+    assert leg["early"]["max_rel"] <= 1e-9

@@ -59,7 +59,8 @@ def test_port_sources_import_no_jax():
             "ops/collide_stream.py", "ops/probes.py", "models/channel.py",
             "models/cavity.py", "probe_bw.py", "probe_vpu.py",
             "accuracy_horizon.py", "make_fullbeat_golden.py", "probe_f64.py",
-            "validate_cavity.py", "measure_bigdata.py"} <= names
+            "validate_cavity.py", "measure_bigdata.py", "validate_flux.py",
+            "sweep_metachrony.py"} <= names
 
 
 _CHILD = r"""
@@ -81,7 +82,8 @@ assert st.it == 3
 from cuda_iblb_11_tpu_torch import probe_bw, probe_vpu
 from cuda_iblb_11_tpu_torch import (accuracy_horizon, make_fullbeat_golden,
                                     measure_bigdata, probe_f64,
-                                    validate_cavity)
+                                    sweep_metachrony, validate_cavity,
+                                    validate_flux)
 from cuda_iblb_11_tpu_torch.models.cavity import LidDrivenCavity
 from cuda_iblb_11_tpu_torch.models.channel import PoiseuilleChannel
 ch = PoiseuilleChannel(8, 16, device="cpu")

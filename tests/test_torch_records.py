@@ -17,7 +17,15 @@ against the JAX run; and:
 - the cavity within 0.02 / 0.02 / 0.03 lid units of Ghia at Re 100 / 400
   / 1000 at the JAX sweep's full length;
 - the four BigData configurations, each overlapped run leaving the serial
-  run's bytes.
+  run's bytes;
+- the metachrony sweep at 2048^2 (16 cilia), 8 points over the whole
+  beat in f32 and f64: f32 Q within 1% of f64 at every point, each beat
+  6,250 B5 and 6,250 B4 launches and no B2 on band_super_whole at K = 16,
+  the distance to the JAX record and both dtypes' argmax reported;
+- the reference channel's beat (validate_flux) in f32 and f64, 100
+  samples each: f32 final Q within 1% of f64, f64's first 2,000 steps
+  within 1e-9 and f32's within 2e-5 of validation/flux_early_f64_c6.dat,
+  one B2 launch a step, the distance to the TPU's curve reported.
 """
 
 import json
@@ -45,7 +53,8 @@ def _rows(entry):
 
 
 @pytest.mark.parametrize("name", ["accuracy_horizon", "f64",
-                                  "cavity_metrics", "bigdata_e2e"])
+                                  "cavity_metrics", "bigdata_e2e",
+                                  "metachrony", "validate_flux"])
 def test_record_names_the_card_and_its_cuts(name):
     record = _load(name)
     assert record
@@ -166,3 +175,65 @@ def test_bigdata_four_configurations():
         assert all(w["main_thread"] is not r["overlap"] for w in r["writes"])
     alone = entry["writer_alone"]["dat"]
     assert len(alone["main"]) == len(alone["worker"]) >= 3
+
+
+def test_metachrony_sweep_f32_against_f64():
+    entry = _load("metachrony")["sweep"]
+    points = [1, 2, 3, 4, 6, 8, 12, 16]
+    assert entry["reduced"] == [] and entry["grid"] == [2048, 2048]
+    assert (entry["c_num"], entry["c_space"]) == (16, 128)
+    assert entry["points"] == points
+    assert (entry["steps"], entry["chunks"], entry["temporal"]) == (
+        BEAT, 10, 16)
+    for dt in ("float32", "float64"):
+        runs = entry["runs"][dt]
+        assert set(runs) == {str(cf) for cf in points}
+        for cf, p in runs.items():
+            assert p["launches"] == {"B5 band_super": 6250,
+                                     "B4 temporal_bulk": 6250,
+                                     "B2 fused_step": 0}, (dt, cf)
+            sim = p["sim"]
+            assert (sim["band_leg"], sim["temporal"], sim["backend"],
+                    sim["dtype"]) == ("band_super_whole", 16, "cuda", dt)
+            assert p["finite"] and p["steps"] == BEAT and p["mlups"] > 0
+            assert len(p["q_chunks"]) == 10
+        qs = {int(cf): p["q_per_beat"] for cf, p in runs.items()}
+        assert entry["argmax_c_fraction"][dt] == max(qs, key=qs.get)
+    for cf in map(str, points):
+        q32, q64 = (entry["runs"][d][cf]["q_per_beat"]
+                    for d in ("float32", "float64"))
+        assert abs(q32 - q64) < 0.01 * abs(q64), cf
+        assert entry["f32_vs_f64"][cf] == pytest.approx(abs(q32 - q64)
+                                                        / abs(q64))
+    # reported beside the gate, not gated: the JAX package's TPU record
+    assert entry["jax_record"] == "validation/metachrony.json"
+    assert entry["jax_argmax_c_fraction"] == 4
+    assert set(entry["jax_distance"]["float64"]) == set(entry["f32_vs_f64"])
+
+
+def test_reference_channel_beat():
+    entry = _load("validate_flux")["reference_channel"]
+    assert entry["reduced"] == []
+    assert entry["config"] == {"c_num": 6, "c_space": 48}
+    legs = entry["legs"]
+    assert set(legs) == {"float32", "float64"}
+    for dt, leg in legs.items():
+        assert (leg["steps"], leg["samples"]) == (BEAT, 100)
+        assert leg["grid"] == [192, 288] and len(leg["q"]) == 100
+        assert leg["finite"] and leg["final_q"] == leg["q"][-1]
+        assert leg["launches"]["B2 fused_step"] == BEAT
+        assert sum(leg["launches"].values()) == BEAT
+        assert (leg["sim"]["backend"], leg["sim"]["temporal"],
+                leg["sim"]["dtype"]) == ("cuda", 1, dt)
+        rows = leg["early"]["rows"]
+        assert [r["it"] for r in rows] == list(range(100, 2001, 100))
+        assert leg["early"]["max_rel"] <= (1e-9 if dt == "float64"
+                                           else 2e-5), dt
+    assert legs["float64"]["sim"]["storage"] == "raw"
+    assert entry["f32_vs_f64"]["final_rel"] < 0.01
+    assert entry["f32_vs_f64"]["final_rel"] == pytest.approx(
+        abs(legs["float32"]["final_q"] - legs["float64"]["final_q"])
+        / abs(legs["float64"]["final_q"]))
+    tpu = entry["tpu_curve"]
+    assert tpu["curve"] == "validation/flux_trt_split_c6.dat"
+    assert tpu["t_ms"] > 60 and tpu["shape_correlation"] > 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--against DIR]
 
 Phases; any failure exits non-zero before the final line:
   1. environment: the card, torch, CUDA, nvcc, and the kernel build from
@@ -137,12 +137,40 @@ Phases; any failure exits non-zero before the final line:
      the reference channel (288 x 192, 6 cilia, temporal 1), 2,000 steps
      in 20 samples: 2,000 B2 launches, every 100-step sample within 1e-9
      (f64) and 2e-5 (f32) of validation/flux_early_f64_c6.dat, in lattice
-     units.
+     units;
+ 11. bf16 storage on the card (f in bf16, everything else f32): each
+     _bf16 entry against its plain version on seeded inputs, into outputs
+     filled with NaN: B2, B2h, B3 (the band leg's extended band, flags
+     [0, 1, 0]: at 288 x 192 without halos as the per-sub-step leg calls
+     it and with a neighbour halo) and B4 (K = 16) at 288 x 192 and 2048 x
+     2048, B5 at 2048 x 2048 (K = 16) and B6 at 8192 x 8192 on the plan
+     held to the card's L2 size (4 tiles of 2,048): f at least 99.9%
+     bit-equal
+     (ops/precision.bf16_agreement; the share and the ulps printed), the
+     f32 outputs at the f32 gates, and every output bit for bit the f32
+     entry's on the same values widened, f rounded to nearest even; B6
+     bit for bit with B5; each timed in turns with that f32 entry (f32,
+     bf16, bf16, f32) beside its plain version and its bound (f at 2 B a
+     value); then the CLI of phase 3 with --dtype bfloat16 at --temporal
+     1 and auto (the f32 runs' launch counts, final Q within 2% of
+     theirs), 2048 x 2048 auto over 24,576 steps in bf16 against f32 in
+     turns (velocity rel-L2 and Q within 1e-2), 8192 x 8192 bf16 on the
+     x-tiled leg (B6) against the whole leg (B5), bit for bit, and the
+     2048 x 2048 quirk: 512 B2h steps in bf16, then one step from that
+     state on the cuda and the torch backend in bf16 less than half as
+     far apart (f and velocity) as the torch backend's bf16 from its f32.
 
 The launch counts of each path are set to 0 just before it and read just
-after.  The last lines are the kernels JSON line, the card's name and power
+after.  The kernels line lists each kernel, then each bf16 entry as
+"<kernel> bf16" with its launches on its bf16 path (B2 on the bf16 CLI at
+--temporal 1, B3 and B4 on its auto run, B5 on 2048 x 2048 auto, B6 on
+the 8192 x 8192 x-tiled leg, B2h on the 2048 x 2048 quirk run).  The last
+lines are the kernels JSON line, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.  A
-detailed JSON record goes to PATH (default build/chip_smoke.json).
+detailed JSON record goes to PATH (default build/chip_smoke.json).  With
+--against DIR (another checkout, e.g. the parent commit's ``git archive``
+unpacked under build/), phase 2 also builds DIR's csrc/ and holds every
+f32 and f64 case's kernel outputs bit for bit against that build's.
 """
 
 import argparse
@@ -337,6 +365,20 @@ def random_inputs(cfg, storage, dtype, device, seed):
     return f, force.to(dtype).contiguous()
 
 
+def sizes(f):
+    """(bytes of one f value, bytes of one value of everything else): the
+    storage and the compute type (f32 under bf16 storage)."""
+    from cuda_iblb_11_tpu_torch.core.state import aux_dtype
+
+    return f.element_size(), aux_dtype(f.dtype).itemsize
+
+
+def nan_like(f, shape, dtype=None):
+    """An output buffer filled with NaN, so that a value the kernel does
+    not write shows."""
+    return f.new_full(shape, float("nan"), dtype=dtype)
+
+
 # --- phase 2: every kernel against its plain version ----------------------
 
 class KernelCase:
@@ -356,16 +398,16 @@ def case_b2(cfg, f, force, walls, storage):
         fused_substep, fused_substep_reference,
     )
 
-    out = f.new_empty(f.shape)
+    out = nan_like(f, f.shape)
     y, x, band = cfg.ydim, cfg.xdim, cfg.force_band
-    es = f.element_size()
+    es, cs = sizes(f)
     return KernelCase(
         lambda: fused_substep(f, force, cfg, walls, "trt_split", storage,
                               out=out),
         lambda: fused_substep_reference(f, force, cfg, walls, "trt_split",
                                         storage),
         ("f", "q", "fluxcol"),
-        es * (18 * y * x + 2 * band * x + 3 * band * x + 2 * y),
+        es * 18 * y * x + cs * (2 * band * x + 3 * band * x + 2 * y),
         COLLIDE_FORCED * y * x + MOMENTS * (band * x + y))
 
 
@@ -383,13 +425,14 @@ def case_b2h(cfg, f, force, walls, storage, band):
     if band != force.shape[1]:
         g = torch.Generator(device=f.device).manual_seed(band)
         force = 1e-4 * torch.randn((2, band, x), generator=g,
-                                   dtype=f.dtype, device=f.device)
-    out = f.new_empty(f.shape)
+                                   dtype=force.dtype, device=f.device)
+    out = nan_like(f, f.shape)
     args = (f, force, cfg.tau, cfg.tau2, walls, "trt_split", storage)
+    es, cs = sizes(f)
     return KernelCase(
         lambda: (collide_stream(*args, out=out),),
         lambda: (collide_stream_reference(*args),), ("f",),
-        f.element_size() * (18 * y * x + 2 * band * x),
+        es * 18 * y * x + cs * 2 * band * x,
         x * (COLLIDE_FORCED * band + COLLIDE_FREE * (y - band)))
 
 
@@ -403,23 +446,24 @@ def case_b3(cfg, plan, f, force, walls, storage, flags, thalo):
     band, x = cfg.force_band, cfg.xdim
     rows = band + plan.pad
     f_ext = f[:, :rows]
-    out = f.new_empty((9, rows, x))
-    f1out = f.new_empty((9, x))
+    out = nan_like(f, (9, rows, x))
+    f1out = nan_like(force, (9, x))
     args = (flags, f_ext, force, None, thalo, cfg, walls, "trt_split",
             storage, band - 1, True)
-    es = f.element_size()
+    es, cs = sizes(f)
     return KernelCase(
         lambda: sharded_fused_substep(*args, out=out, f1out=f1out),
         lambda: sharded_fused_substep_reference(*args),
         ("f", "f1row", "q", "fluxcol"),
-        es * (18 * rows * x + 2 * band * x + 9 * x * (1 + (thalo is not None))
-              + 3 * band * x + 2 * rows),
+        es * 18 * rows * x + cs * (2 * band * x + 9 * x * (
+            1 + (thalo is not None)) + 3 * band * x + 2 * rows),
         COLLIDE_FORCED * rows * x + MOMENTS * (band * x + rows))
 
 
 def case_b4(cfg, plan, f, walls, storage):
     import torch
 
+    from cuda_iblb_11_tpu_torch.core.state import aux_dtype
     from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
         temporal_bulk, temporal_bulk_reference,
     )
@@ -427,18 +471,20 @@ def case_b4(cfg, plan, f, walls, storage):
     band, y, x, K = cfg.force_band, cfg.ydim, cfg.xdim, plan.K
     f_bulk = f[:, band:]
     g = torch.Generator(device="cpu").manual_seed(11)
-    bhalos = (f[None, :, band - 1] * (1.0 + 1e-3 * torch.randn(
-        (K, 9, x), generator=g, dtype=torch.float64).to(f))).contiguous()
-    out = f.new_empty(f.shape)[:, band:]
+    cdt = aux_dtype(f.dtype)
+    bhalos = (f[None, :, band - 1].to(cdt) * (1.0 + 1e-3 * torch.randn(
+        (K, 9, x), generator=g, dtype=torch.float64).to(
+            f.device, cdt))).contiguous()
+    out = nan_like(f, f.shape)[:, band:]
     rows = y - band
-    es = f.element_size()
+    es, cs = sizes(f)
     kc = KernelCase(
         lambda: temporal_bulk(f_bulk, bhalos, cfg, walls, "trt_split",
                               storage, out=out),
         lambda: temporal_bulk_reference(f_bulk, bhalos, cfg, walls,
                                         "trt_split", storage),
         ("f", "flux"),
-        es * (18 * rows * x + 9 * K * x + K),
+        es * 18 * rows * x + cs * (9 * K * x + K),
         K * (COLLIDE_FREE * rows * x + MOMENTS * rows))
     kc.inputs = (f_bulk, bhalos, walls, storage)
     kc.block = (rows, 0, x, K, f.dtype)   # (yl, pad, width, K, dtype)
@@ -459,19 +505,22 @@ def super_points(cfg, plan, dtype):
         cfg, plan.K, plan.halo, sim.aux_dtype, u_s, eps, anchor, frac, 1)]
 
 
-def band_super_counts(cfg, plan, es):
+def band_super_counts(cfg, plan, es, cs=None):
     """(bytes, operations) of one band super-step call: the forced collide
     of the band rows, the force-free collide of only those ghost rows that
     reach the band by the last sub-step (K - s of them at sub-step s), the
     band moments, the IB coupling of every point and the flux column; B5's
     and B6's (the same function: a tile's ghost columns are the design's
-    cost, not the function's)."""
+    cost, not the function's).  es: bytes of an f value, cs: of every
+    other value (es unless given)."""
     from cuda_iblb_11_tpu_torch.ops.band_super import NPT
 
     K, band, x, c = plan.K, cfg.force_band, cfg.xdim, cfg.c_num
     rows = band + plan.pad_s
-    return (es * (9 * rows * x + 2 * band * x + K * c * NPT * 5
-                  + 9 * band * x + 9 * K * x + 2 * band * x + K)
+    cs = es if cs is None else cs
+    return (es * (9 * rows * x + 9 * band * x)
+            + cs * (2 * band * x + K * c * NPT * 5 + 9 * K * x
+                    + 2 * band * x + K)
             + 4 * 2 * K * c * NPT,
             K * ((COLLIDE_FORCED + MOMENTS) * band * x + IB_POINT * cfg.ns
                  + 4 * band) + COLLIDE_FREE * x * K * (K + 1) // 2)
@@ -484,13 +533,13 @@ def case_b5(cfg, plan, f, force, walls, storage, xs):
     )
 
     f_ext = f[:, :cfg.force_band + plan.pad_s]
-    out = f.new_empty((9, cfg.force_band, cfg.xdim))
+    out = nan_like(f, (9, cfg.force_band, cfg.xdim))
     args = (f_ext, force, *xs, cfg, plan.halo, walls, "trt_split", storage)
     return KernelCase(
         lambda: band_super(*args, out=out),
         lambda: band_super_reference(*args),
         ("f_band", "bhalos", "force", "flux"),
-        *band_super_counts(cfg, plan, f.element_size()))
+        *band_super_counts(cfg, plan, *sizes(f)))
 
 
 def case_b6(cfg, plan, f, force, walls, storage, xs):
@@ -504,18 +553,19 @@ def case_b6(cfg, plan, f, force, walls, storage, xs):
     band, x, K = cfg.force_band, cfg.xdim, plan.K
     rows = band + plan.pad_s
     f_ext = f[:, :rows]
-    out = f.new_empty((9, band, x))
+    out = nan_like(f, (9, band, x))
     args = (f_ext, force, *xs, cfg, plan.halo, plan.tile_x, plan.gx, walls,
             "trt_split", storage)
+    es, cs = sizes(f)
     kc = KernelCase(
         lambda: band_super_tiled(*args, out=out),
         lambda: band_super_tiled_reference(*args),
         ("f_band", "bhalos", "force", "flux"),
-        *band_super_counts(cfg, plan, f.element_size()))
+        *band_super_counts(cfg, plan, es, cs))
     n_tiles, txe = x // plan.tile_x, plan.tile_x + 2 * plan.gx
-    kc.copy_bytes = 2 * f.element_size() * n_tiles * (
-        (9 * rows + 2 * band) * txe + (9 * band + 9 * K + 2 * band)
-        * plan.tile_x)
+    kc.copy_bytes = 2 * n_tiles * (
+        (9 * rows * es + 2 * band * cs) * txe
+        + (9 * band * es + (9 * K + 2 * band) * cs) * plan.tile_x)
     return kc
 
 
@@ -686,10 +736,13 @@ def case_b8(cfg, f, force, walls, storage, ix, K, dtype):
                            f.element_size()))
 
 
-def phase_kernels(record):
+def phase_kernels(record, other=None):
+    """Phase 2; with ``other`` (another checkout's kernel library), every
+    case's kernel outputs also bit for bit against that build's."""
     import torch
 
     from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.ops import _kernels
     from cuda_iblb_11_tpu_torch.ops import reference as ref
     from cuda_iblb_11_tpu_torch.ops.probes import device_ms, launch_floor_ms
     from cuda_iblb_11_tpu_torch.ops.temporal import (
@@ -717,9 +770,24 @@ def phase_kernels(record):
     b6_vs_b5 = []
     b4_vs_b3 = []
     b0_vs_single = []
+    vs_other = []
 
     def run(kname, gname, dt, storage, top, kc, gates, extra=""):
         got = kc.kern()
+        if other is not None:
+            mine = [t.clone() for t in got]   # the call writes into out
+            with _kernels.using(other):
+                theirs = kc.kern()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+            vs_other.append(dict(kernel=kname, grid=gname, dtype=dt,
+                                 top=top, case=extra, bit_identical=same))
+            check(same, f"{kname} {gname} {dt} {top} {extra}: not the "
+                        f"other build's outputs bit for bit")
+            # free the copy before the plain version runs (8192^2 f64 B4
+            # fills the card), and hold this build's outputs again
+            del mine, theirs
+            got = kc.kern()
         want = kc.plain()
         torch.cuda.synchronize()
         errs = {}
@@ -899,6 +967,10 @@ def phase_kernels(record):
     record["b6_vs_b5"] = b6_vs_b5
     record["b4_vs_k_launches_of_b3"] = b4_vs_b3
     record["b0_table_vs_single_slab_calls"] = b0_vs_single
+    if other is not None:
+        record["kernel_vs_other_build"] = vs_other
+        print(f"  every case of every kernel bit for bit with the build of "
+              f"{other.path}: {len(vs_other)} cases", flush=True)
 
     # times at 2048 x 2048, f32 deviatoric, slip (the first case's inputs;
     # B3 with the band leg's flags [0, 1, 0]; B0 on the (2, 2) exchange);
@@ -1928,12 +2000,427 @@ def phase_experiments(record):
     record["experiments"] = rows
 
 
+# --- phase 11: bf16 storage on the card ------------------------------------
+
+# The bf16 entries (f in bf16, everything else f32), each named after its
+# f32 kernel in KERNELS (source and TPU kernel are the same).
+BF16_KERNELS = ("B2 fused_step", "B2h collide_stream",
+                "B3 sharded_fused_step", "B4 temporal_bulk",
+                "B5 band_super", "B6 band_super_tiled")
+BF16_SHARE = 0.999   # of f bit-equal (ops/precision.bf16_agreement)
+BF16_CLI_Q_GATE = 2e-2   # the JAX package's bf16 flux bound
+#                          (tests/test_simulation.py:125-140)
+BF16_LONG_STEPS = 24_576   # 2048^2 auto: JAX's bench horizon
+BF16_LONG_GATES = {"velocity": 1e-2, "q": 1e-2}
+
+
+def bf16_inputs(cfg, dev, seed):
+    """Seeded deviatoric f rounded to bf16 and an f32 band force, from the
+    same draws as random_inputs' f32 case."""
+    import torch
+
+    f, force = random_inputs(cfg, "deviatoric", torch.float32, dev, seed)
+    return f.to(torch.bfloat16), force
+
+
+def run_bf16_case(kname, gname, kc, twin, gates, results, worst, extra=""):
+    """A bf16 kernel against its plain version on the same inputs (each
+    bf16 output at least BF16_SHARE bit-equal, its ulps printed; each f32
+    output at its rel-L2 gate), and bit for bit against ``twin``, the f32
+    entry on the same values widened, its f rounded to nearest even: the
+    same f32 arithmetic, rounded where the TPU kernel rounds."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.precision import bf16_agreement
+
+    got = kc.kern()
+    want = kc.plain()
+    same = twin.kern()
+    torch.cuda.synchronize()
+    errs = {}
+    for n, g, w, t in zip(kc.names, got, want, same):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{kname} bf16 {n}: {g.dtype} {tuple(g.shape)} against "
+              f"{w.dtype} {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{kname} bf16 {n}: not finite")
+        check(t.dtype == torch.float32 and torch.equal(g, t.to(g.dtype)),
+              f"{kname} bf16 {gname} {n}: not the f32 entry's result "
+              f"rounded, bit for bit")
+        if g.dtype == torch.bfloat16:
+            share, ulps, floored = bf16_agreement(g, w)
+            errs[n] = dict(bit_equal=share, max_ulps=ulps,
+                           max_ulps_floored=floored)
+            check(share >= BF16_SHARE, f"{kname} bf16 {gname} {n}: "
+                  f"{share:.6f} bit-equal")
+        else:
+            check(g.dtype == torch.float32, f"{kname} bf16 {n}: {g.dtype}")
+            errs[n] = dict(rel_l2=rel_l2(g, w))
+            gate = gates.get(n, gates["*"])
+            check(errs[n]["rel_l2"] <= gate, f"{kname} bf16 {gname} {n}: "
+                  f"rel-L2 {errs[n]['rel_l2']} > {gate}")
+    err = max_abs(got, want)
+    worst[kname] = max(worst.get(kname, 0.0), err)
+    results.append(dict(kernel=kname, grid=gname, dtype="bfloat16",
+                        case=extra, errors=errs, max_abs_err=err,
+                        equals_f32_entry_rounded=True))
+    print(f"  {kname} bf16 {gname} {extra}: " + " ".join(
+        f"{n}=" + (f"{e['bit_equal']:.6%} bit-equal, {e['max_ulps']:.0f} "
+                   f"ulps ({e['max_ulps_floored']:.0f} floored)"
+                   if "bit_equal" in e else f"{e['rel_l2']:.3e}")
+        for n, e in errs.items()) + f"  max|err|={err:.3e}; = the f32 "
+        "entry rounded, bit for bit", flush=True)
+    return got
+
+
+def time_bf16(kname, kc16, kc32, shape, reps, plain_reps, worst):
+    """The bf16 entry and the f32 entry on the same values widened, in
+    turns (f32, bf16, bf16, f32), the bf16 plain version twice; the bf16
+    call's bytes (f at 2 B a value) and bound."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.ops.probes import device_ms
+
+    for fn in (kc32.kern, kc16.kern, kc16.plain):
+        fn()
+    torch.cuda.synchronize()
+    t = [device_ms(kc32.kern, reps), device_ms(kc16.kern, reps),
+         device_ms(kc16.kern, reps), device_ms(kc32.kern, reps)]
+    p = [device_ms(kc16.plain, plain_reps), device_ms(kc16.plain, plain_reps)]
+    bytes_ms = kc16.nbytes / HBM_BYTES_S * 1e3
+    flop_ms = kc16.nflop / F32_FLOP_S * 1e3
+    row = dict(shape=shape, ms=(t[1] + t[2]) / 2, ms_runs=t[1:3],
+               f32_ms=(t[0] + t[3]) / 2, f32_ms_runs=[t[0], t[3]],
+               plain_ms=sum(p) / 2, plain_ms_runs=p,
+               bytes_per_call=kc16.nbytes, f32_bytes_per_call=kc32.nbytes,
+               flop_per_call=kc16.nflop, bound_ms=max(bytes_ms, flop_ms),
+               bound_by="bytes" if bytes_ms >= flop_ms else "operations",
+               f32_bound_ms=max(kc32.nbytes / HBM_BYTES_S,
+                                kc32.nflop / F32_FLOP_S) * 1e3,
+               max_abs_err=worst[kname])
+    print(f"  {kname} bf16 {shape}: kernel {row['ms']:.4f} ms ({t[1]:.4f}, "
+          f"{t[2]:.4f}), f32 kernel in turns {row['f32_ms']:.4f} ms "
+          f"({t[0]:.4f}, {t[3]:.4f}), plain {row['plain_ms']:.4f} ms; "
+          f"{kc16.nbytes / 1e6:.1f} MB (f32 {kc32.nbytes / 1e6:.1f} MB), "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; f32 "
+          f"{row['f32_bound_ms']:.4f})", flush=True)
+    return row
+
+
+def bf16_sims(gname, **kw):
+    """The model at grid gname on the cuda backend in bf16 and on the torch
+    backend in bf16 and in f32, by (backend, dtype)."""
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+
+    c, sp, y = GRIDS[gname]
+    return {(b, dt): MucociliarySim(
+        SimConfig(c_num=c, c_space=sp, ydim=y, dtype=dt), backend=b,
+        device=DEVICE, **kw)
+        for b, dt in (("cuda", "bfloat16"), ("torch", "bfloat16"),
+                      ("torch", "float32"))}
+
+
+def bf16_backends_apart(sims, st, steps, label):
+    """From state st, `steps` steps on each of bf16_sims' models (the f32
+    one from st widened): {"f" | "velocity": (rel-L2 of cuda against
+    torch in bf16, of torch in bf16 against f32)}; the first must be less
+    than half the second, since the two bf16 backends round at the same
+    points."""
+    import torch
+
+    out = {key: s_.run_chunk(st._replace(f=st.f.float()) if key[1] ==
+                             "float32" else st, steps)
+           for key, s_ in sims.items()}
+    f = {key: o.f for key, o in out.items()}
+    u = {key: sims[key].fields(o)[1] for key, o in out.items()}
+    check(bool(torch.isfinite(u["cuda", "bfloat16"]).all()),
+          f"{label}: non-finite")
+    d = {name: (rel_l2(x["cuda", "bfloat16"], x["torch", "bfloat16"]),
+                rel_l2(x["torch", "bfloat16"], x["torch", "float32"]))
+         for name, x in (("f", f), ("velocity", u))}
+    print(f"  {label}: cuda vs torch " + ", ".join(
+        f"{k} {a:.3e} (bf16 vs f32 {b:.3e}, ratio {a / b:.3f})"
+        for k, (a, b) in d.items()), flush=True)
+    check(all(a < 0.5 * b for a, b in d.values()),
+          f"{label}: cuda vs torch against bf16 vs f32 {d}")
+    return d
+
+
+def phase_bf16(record):
+    """bf16 storage on the card: each bf16 entry against its plain version
+    at its main path's shapes (B2, B2h, B3, B4 at 288 x 192 and 2048^2, B5
+    at 2048^2, B6 at 8192^2 on the plan held to the card's L2 size), timed
+    in turns with its f32 kernel at 2048^2 (B6 at 8192^2); then the main paths in bf16: the CLI at --temporal 1 and auto
+    (the f32 runs' launch counts, Q within 2% of phase 3's), 2048^2 auto
+    over 24,576 steps against f32 (velocity and Q within 1e-2, the rates in
+    turns), 8192^2 on the x-tiled leg against the whole leg (bit for bit),
+    and the 2048^2 quirk, cuda against the torch backend.  Returns (each
+    bf16 kernel's timing row, its launches on its path)."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig
+    from cuda_iblb_11_tpu_torch.ops import reference as ref
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
+    from cuda_iblb_11_tpu_torch.ops.temporal import plan_temporal
+
+    print("== phase 11: bf16 storage on the card", flush=True)
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    walls = ref.WallSpec(top="slip")
+    st = "deviatoric"
+    results, worst, timings = [], {}, {}
+    g = {"*": GATE["float32"]}
+    gi = {"force": GATE_IB["float32"], "flux": GATE_IB["float32"], "*": g["*"]}
+
+    # the kernels at the shapes of their bf16 paths, each beside the f32
+    # entry on the same values: at 288 x 192 the CLI's (B2 on the whole
+    # grid, B2h at the quirk step's band, B3 on the per-sub-step leg's band
+    # block, flags [0, 1, 0] without halos as the model calls it and with
+    # a neighbour halo, B4 on the bulk at K = 16); at 2048^2 (auto: the
+    # whole band super-step) the same and B5, timed there
+    for gname, leg in (("288x192", "per_substep"),
+                       (TIMING_GRID, "band_super_whole")):
+        c, sp, y = GRIDS[gname]
+        cfg = SimConfig(c_num=c, c_space=sp, ydim=y, dtype="bfloat16")
+        plan = MucociliarySim(cfg, walls, backend="cuda", device=DEVICE,
+                              temporal="auto").plan
+        check(plan.K == K and plan.band_leg == leg,
+              f"{gname} bf16: auto plan {plan}")
+        f16, force = bf16_inputs(cfg, dev, seed=0)
+        thalo = (f16[:, cfg.force_band + plan.pad].float()
+                 * 1.001).contiguous()
+        xs = super_points(cfg, plan, torch.bfloat16) \
+            if plan.pad_s is not None else None
+        cases = {}   # dtype -> [(kernel, case label, KernelCase)]
+        for f in (f16, f16.float()):
+            cs = [("B2 fused_step", "", case_b2(cfg, f, force, walls, st)),
+                  ("B2h collide_stream", f"band={cfg.force_band}",
+                   case_b2h(cfg, f, force, walls, st, cfg.force_band))]
+            cs += [("B3 sharded_fused_step", f"flags=[0, 1, 0] pad="
+                    f"{plan.pad} " + ("halo" if th is not None else
+                                      "no halo (the model's call)"),
+                    case_b3(cfg, plan, f, force, walls, st, (0, 1, 0), th))
+                   for th in ((thalo, None) if gname == "288x192"
+                              else (thalo,))]
+            cs.append(("B4 temporal_bulk", f"K={K}",
+                       case_b4(cfg, plan, f, walls, st)))
+            if xs is not None:
+                cs.append(("B5 band_super", f"K={K}",
+                           case_b5(cfg, plan, f, force, walls, st, xs)))
+            cases[f.dtype] = cs
+        c16, c32 = cases[torch.bfloat16], cases[torch.float32]
+        for (kname, extra, kc), (_, _, twin) in zip(c16, c32):
+            run_bf16_case(kname, gname, kc, twin,
+                          gi if kname == "B5 band_super" else g, results,
+                          worst, extra)
+        if gname == TIMING_GRID:
+            for (kname, _, kc), (_, _, twin) in zip(c16, c32):
+                slow = kname in ("B4 temporal_bulk", "B5 band_super")
+                timings[kname] = time_bf16(kname, kc, twin,
+                                           f"{gname} bf16 deviatoric",
+                                           10 if slow else 50, 2, worst)
+        del cases, c16, c32, f, f16, force, xs
+        torch.cuda.empty_cache()
+
+    # B6 at 8192^2 on the plan held to the card's L2 size, against its
+    # plain version, the f32 entry at the same tiling, and bit for bit
+    # against B5 on the same inputs
+    big_name, (c, sp, y), _ = BIG_GRID
+    l2 = l2_bytes(dev)
+    cfg = SimConfig(c_num=c, c_space=sp, ydim=y, dtype="bfloat16")
+    whole = plan_temporal(cfg, K, walls, torch.bfloat16)
+    xt = plan_temporal(cfg, K, walls, torch.bfloat16, budget=l2)
+    check(xt.band_leg == "band_super_xtiled",
+          f"{big_name} bf16: the budgeted plan took {xt.band_leg}")
+    f16, force = bf16_inputs(cfg, dev, seed=0)
+    xs = super_points(cfg, whole, torch.bfloat16)
+    b6 = {f.dtype: case_b6(cfg, xt, f, force, walls, st, xs)
+          for f in (f16, f16.float())}
+    got6 = run_bf16_case("B6 band_super_tiled", big_name, b6[torch.bfloat16],
+                         b6[torch.float32], gi, results, worst,
+                         f"K={K} tile={xt.tile_x} gx={xt.gx} "
+                         f"(budget {l2} B)")
+    got5 = case_b5(cfg, whole, f16, force, walls, st, xs).kern()
+    same = all(torch.equal(a, b) for a, b in zip(got6, got5))
+    print(f"  B6 vs B5 {big_name} bf16: bit-identical {same}", flush=True)
+    check(same, f"B6 vs B5 {big_name} bf16: not bit for bit")
+    record["bf16_b6_vs_b5_bit_identical"] = same
+    del got5, got6
+    timings["B6 band_super_tiled"] = time_bf16(
+        "B6 band_super_tiled", b6[torch.bfloat16], b6[torch.float32],
+        f"{big_name} bf16 deviatoric, tile {xt.tile_x}", 10, 1, worst)
+    del b6, f16, force, xs
+    torch.cuda.empty_cache()
+    record["bf16_kernel_vs_plain"] = results
+    record["bf16_kernel_timing"] = timings
+
+    # the CLI in bf16 (each launch count equal to its f32 run's, phase 3)
+    launches = {}
+    zero = dict.fromkeys(KERNELS, 0)
+    for label, temporal in (("cli_temporal_1", "1"),
+                            ("cli_temporal_auto", "auto")):
+        _, n, log, q = run_cli(f"{label}_bf16", ["--dtype", "bfloat16",
+                                                 "--temporal", temporal],
+                               None, record)
+        check(n == record[label]["launches"],
+              f"bf16 {label} launches {n}, f32 {record[label]['launches']}")
+        check("Dtype: bfloat16" in log and "Storage: deviatoric" in log,
+              f"bf16 {label}: SimLog does not record bf16 storage")
+        q32 = {r["it"]: r["q"] for r in record[label]["flux"]}
+        rel = {it: abs(q[it] - q32[it]) / abs(q32[it]) for it in FLUX_ITS}
+        record[f"{label}_bf16_vs_f32"] = rel
+        print(f"    bf16 vs f32 flux rel: {rel}", flush=True)
+        check(rel[FLUX_ITS[-1]] <= BF16_CLI_Q_GATE,
+              f"bf16 {label}: final Q {rel[FLUX_ITS[-1]]} from f32")
+        launches[label] = {k: v for k, v in n.items() if v}
+    check(launches["cli_temporal_1"] == {"B2 fused_step": 2000}
+          and launches["cli_temporal_auto"] == {
+              "B2 fused_step": 16, "B3 sharded_fused_step": 1984,
+              "B4 temporal_bulk": 124},
+          f"bf16 CLI launches {launches}")
+
+    # the CLI's per-sub-step leg at 288 x 192 (B3 + the torch IB + B4) in
+    # both IB modes: from a state the torch backend reached in 2 K + 3
+    # steps, one call of K sub-steps on each backend
+    rows = []
+    for ib in ("periodic", "reference"):
+        sims = bf16_sims("288x192", temporal=K, ib_x_edge=ib)
+        check(sims["cuda", "bfloat16"].resolved_config()["band_leg"]
+              == "per_substep", f"288x192 bf16 {ib}: not the per-sub-step "
+                                "leg")
+        t16 = sims["torch", "bfloat16"]
+        st0 = t16.run_chunk(t16.init_state(), 2 * K + 3)
+        reset_launches()
+        d = bf16_backends_apart(
+            sims, st0, K, f"288x192 per-sub-step leg bf16, ib {ib}, one "
+                          f"call of {K} from a common state")
+        n = read_launches()
+        check(n == {**zero, "B3 sharded_fused_step": K,
+                    "B4 temporal_bulk": 1},
+              f"288x192 bf16 {ib} per-sub-step call launches {n}")
+        rows.append(dict(grid="288x192", ib_x_edge=ib, steps=K,
+                         per_substep_cuda_vs_torch_bf16=d))
+        del sims, t16, st0
+
+    # 2048^2 auto (B5 + B4) over 24,576 steps, bf16 against f32, in turns
+    # (f32, bf16, bf16, f32)
+    c, sp, y = GRIDS[TIMING_GRID]
+    sims, us, qs = {}, {}, {}
+    n_long = BF16_LONG_STEPS
+    for dt in ("float32", "bfloat16"):
+        cfg = SimConfig(c_num=c, c_space=sp, ydim=y, dtype=dt)
+        sims[dt] = MucociliarySim(cfg, backend="cuda", device=DEVICE,
+                                  temporal="auto")
+        sims[dt].run_chunk(sims[dt].init_state(), K)   # warm-up
+    want = {**zero, "B5 band_super": n_long // K,
+            "B4 temporal_bulk": n_long // K}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        sim = sims[dt]
+        reset_launches()
+        st_, sec = _timed_run(sim, n_long)
+        n = read_launches()
+        check(n == want, f"{TIMING_GRID} auto {dt} launches {n}")
+        if dt not in us:
+            us[dt], qs[dt] = sim.fields(st_)[1], float(st_.q)
+            check(bool(torch.isfinite(us[dt]).all()),
+                  f"{TIMING_GRID} auto {dt}: non-finite")
+        if dt == "bfloat16":
+            launches[f"{TIMING_GRID} auto bf16"] = n
+        _report(rows, TIMING_GRID, f"auto {dt}", sim.cfg, st_, sec, n_long,
+                band_leg=sim.resolved_config()["band_leg"])
+        del st_
+    del sims
+    err_u = rel_l2(us["bfloat16"], us["float32"])
+    err_q = abs(qs["bfloat16"] - qs["float32"]) / abs(qs["float32"])
+    print(f"  {TIMING_GRID} auto after {n_long} steps, bf16 against f32: "
+          f"velocity rel-L2 {err_u:.3e}, Q rel {err_q:.3e}", flush=True)
+    rows.append(dict(grid=TIMING_GRID, steps=n_long,
+                     velocity_rel_l2_bf16_vs_f32=err_u,
+                     q_rel_bf16_vs_f32=err_q))
+    check(err_u < BF16_LONG_GATES["velocity"]
+          and err_q < BF16_LONG_GATES["q"],
+          f"{TIMING_GRID} bf16 vs f32: velocity {err_u}, Q {err_q}")
+    del us
+
+    # 8192^2, 32 steps: the x-tiled leg (the budgeted plan, B6) against
+    # the whole leg (B5), bit for bit as in f32
+    c, sp, y = BIG_GRID[1]
+    cfg = SimConfig(c_num=c, c_space=sp, ydim=y, dtype="bfloat16")
+    res = {}
+    for label in ("whole", "x-tiled"):
+        sim = MucociliarySim(cfg, backend="cuda", device=DEVICE,
+                             temporal="auto")
+        if label == "x-tiled":
+            sim.plan = plan_temporal(cfg, K, walls, torch.bfloat16,
+                                     budget=l2)
+        reset_launches()
+        st_ = sim.run_chunk(sim.init_state(), 2 * K)
+        torch.cuda.synchronize()
+        res[label] = (st_.f, read_launches())
+        del sim, st_
+    n6 = res["x-tiled"][1]
+    check(n6 == {**zero, "B4 temporal_bulk": 2, "B6 band_super_tiled":
+                 2 * cfg.xdim // xt.tile_x},
+          f"{big_name} bf16 x-tiled launches {n6}")
+    same = torch.equal(res["whole"][0], res["x-tiled"][0])
+    print(f"  {big_name} bf16, {2 * K} steps: x-tiled leg (B6, "
+          f"{n6['B6 band_super_tiled']} tile launches) = whole leg (B5) bit "
+          f"for bit: {same}", flush=True)
+    check(same, f"{big_name} bf16: the x-tiled leg is not the whole leg")
+    launches[f"{big_name} x-tiled bf16"] = n6
+    rows.append(dict(grid=big_name, steps=2 * K,
+                     xtiled_equals_whole_bit_for_bit=same))
+    del res
+    torch.cuda.empty_cache()
+
+    # the quirk at 2048^2: 512 steps on the cuda backend in bf16, then from
+    # that state one step on the cuda backend, on the torch backend, and on
+    # the torch backend in f32 (the state widened): the two bf16 backends
+    # round at the same points, so they lie less than half as far apart as
+    # bf16 lies from f32
+    sims = bf16_sims(TIMING_GRID, temporal=1, ib_x_edge="reference")
+    sim = sims["cuda", "bfloat16"]
+    sim.run_chunk(sim.init_state(), 4)
+    reset_launches()
+    st_, sec = _timed_run(sim, REAL_SIZE_STEPS)
+    n = {k: v for k, v in read_launches().items() if v}
+    check(n == {"B2h collide_stream": REAL_SIZE_STEPS},
+          f"quirk bf16 launches {n}")
+    launches["quirk bf16"] = n
+    _report(rows, TIMING_GRID, "quirk cuda bfloat16", sim.cfg, st_, sec,
+            REAL_SIZE_STEPS, launches=n)
+    d = bf16_backends_apart(sims, st_, 1, f"quirk {TIMING_GRID} bf16, one "
+                            f"step from the cuda run's state after "
+                            f"{REAL_SIZE_STEPS}")
+    rows.append(dict(grid=TIMING_GRID, quirk_one_step_cuda_vs_torch_bf16=d))
+    del sims, sim, st_
+    record["bf16_runs"] = rows
+    record["bf16_launches"] = launches
+    record["bf16_phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11: {record['bf16_phase_s']:.1f} s", flush=True)
+    path = {"B2 fused_step": launches["cli_temporal_1"]["B2 fused_step"],
+            "B2h collide_stream": launches["quirk bf16"][
+                "B2h collide_stream"],
+            "B3 sharded_fused_step": launches["cli_temporal_auto"][
+                "B3 sharded_fused_step"],
+            "B4 temporal_bulk": launches["cli_temporal_auto"][
+                "B4 temporal_bulk"],
+            "B5 band_super": launches[f"{TIMING_GRID} auto bf16"][
+                "B5 band_super"],
+            "B6 band_super_tiled": n6["B6 band_super_tiled"]}
+    return timings, path
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
     ap.add_argument("--record", default=os.path.join(REPO, "build",
                                                       "chip_smoke.json"),
                     help="where to write the detailed JSON record")
+    ap.add_argument("--against", default=None, metavar="DIR",
+                    help="another checkout (e.g. the parent commit's "
+                         "git archive under build/): phase 2 also holds "
+                         "every f32 and f64 case bit for bit against the "
+                         "build of its csrc/")
     args = ap.parse_args()
     import torch
 
@@ -1957,10 +2444,16 @@ def main():
     env["ptxas"] = [ln for ln in lib.build_log.splitlines()
                     if "registers" in ln or "spill" in ln]
     record["environment"] = env
+    other = None
+    if args.against:
+        from cuda_iblb_11_tpu_torch.probe_band_super import other_library
+
+        other = other_library(args.against)
+        env["against"] = os.path.abspath(args.against)
     for k, v in env.items():
         print(f"  {k}: {v}", flush=True)
 
-    timings = phase_kernels(record)
+    timings = phase_kernels(record, other)
     n_single, n_auto, q_auto = phase_main_path(record)
     n_super, n_xtiled = phase_real_size(record)
     n_mesh = phase_mesh(record, q_auto)
@@ -1970,6 +2463,7 @@ def main():
     timings.update(probe_rows)
     phase_accuracy(record)
     phase_experiments(record)
+    bf16_timings, bf16_launches = phase_bf16(record)
     # each kernel's launches on the path that runs it: B2 on the
     # single-step CLI, B3 and B4 on the default (auto) CLI, B5 on the
     # 2048^2 temporal run, B6 on the 8192^2 x-tiled leg (a budgeted plan),
@@ -1988,6 +2482,8 @@ def main():
                 "B8 band_super_xsharded": m22["B8 band_super_xsharded"],
                 "B2h collide_stream": n_quirk["B2h collide_stream"],
                 **n_probes}
+    launches.update({f"{k} bf16": n for k, n in bf16_launches.items()})
+    timings.update({f"{k} bf16": row for k, row in bf16_timings.items()})
     for kname, n in launches.items():
         check(n > 0, f"{kname} was not launched on its path")
 
@@ -1999,7 +2495,8 @@ def main():
         bound_ms=timings[kname]["bound_ms"],
         bound_by=timings[kname]["bound_by"],
         library_ms=timings[kname].get("library_ms"))
-        for kname, (src, rep) in KERNELS.items()]}
+        for kname, (src, rep) in list(KERNELS.items()) + [
+            (f"{k} bf16", KERNELS[k]) for k in BF16_KERNELS]]}
     record["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(os.path.abspath(args.record)), exist_ok=True)
     with open(args.record, "w") as fh:

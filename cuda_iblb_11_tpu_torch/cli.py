@@ -53,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None,
                    choices=["float32", "float64", "bfloat16"],
                    help="state precision (float64 runs the kernel in native "
-                        "f64; bfloat16 only on the CPU for now)")
+                        "f64; bfloat16 stores f in bf16 and computes in "
+                        "f32, deviatoric storage only, one device only)")
     p.add_argument("--temporal", type=_temporal_arg, default="auto",
                    metavar="K",
                    help="K-step temporal blocking: K > 1 advances the "
@@ -97,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                    const="off", help="alias for --overlap off")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace of the first interval (not yet "
-                        "ported)")
+                   help="capture a torch.profiler trace of the first "
+                        "interval (a Chrome trace, trace.json, in the "
+                        "directory)")
     return p
 
 

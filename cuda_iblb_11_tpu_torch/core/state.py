@@ -9,6 +9,11 @@ Same planar layout as the JAX package (cuda_iblb_11_tpu/core/state.py):
     it     int              step counter
 
 Auxiliary tensors (force, lasts, q) stay at f32 or wider under bf16 storage.
+
+bf16 crosses to and from numpy as its 2-byte bits: numpy has no bfloat16
+of its own, so a JAX bf16 array reaches numpy as an ml_dtypes bfloat16 and
+an npz stores it as void (|V2).  Both are read by their bits, without
+ml_dtypes, and a bf16 tensor leaves as a |V2 array of the same bits.
 """
 
 from __future__ import annotations
@@ -74,12 +79,17 @@ def initial_state(cfg: SimConfig, dtype=None, device="cpu") -> FlowState:
     return FlowState(f=f, force=force, lasts=lasts, q=q, it=0)
 
 
+_BF16_BITS = np.dtype("V2")   # how a bf16 array leaves for numpy
+
+
 def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2 and not a.dtype.fields:
+        # bf16: an ml_dtypes bfloat16 array, or |V2 from an npz
+        bits = np.array(a).view(np.uint16)      # a writable copy
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     if a.dtype.kind not in "fiu":
-        # a JAX bf16 array arrives as ml_dtypes bfloat16 (or void in npz)
-        raise NotImplementedError(
-            f"{a.dtype} state from numpy waits for bf16 storage (ROADMAP "
-            "Queue 1 item 2)")
+        raise ValueError(f"state arrays are float, int or bf16 bits; got "
+                         f"{a.dtype}")
     return torch.from_numpy(np.array(a)).to(device)  # a writable copy
 
 
@@ -98,14 +108,14 @@ def state_from_numpy(f, force, lasts, q, it, device="cpu") -> FlowState:
 
 def state_to_numpy(state: FlowState) -> dict:
     """numpy arrays with the JAX FlowState's fields, shapes and dtypes
-    (``it`` as a 0-d int32 array)."""
+    (``it`` as a 0-d int32 array); a bf16 tensor as a |V2 array of its
+    bits, what an npz of JAX's bf16 state holds."""
     out = {}
     for name in ("f", "force", "lasts", "q"):
-        t = getattr(state, name).detach()
+        t = getattr(state, name).detach().cpu()
         if t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "bf16 state to numpy waits for bf16 storage (ROADMAP "
-                "Queue 1 item 2)")
-        out[name] = t.cpu().numpy()
+            out[name] = t.view(torch.int16).numpy().view(_BF16_BITS)
+        else:
+            out[name] = t.numpy()
     out["it"] = np.asarray(state.it, np.int32)
     return out

@@ -107,6 +107,15 @@
 // is the faster (PERF.md), so the simulations plan no budget and run B6
 // only where a caller builds a budgeted plan.  Its bound is B5's (the
 // same function).
+//
+// bf16 storage (the _bf16 entry, the JAX package's --dtype bfloat16; B8
+// shares it, but no mesh runs bf16 yet): f_ext is read and f_band written
+// as bf16; the K sub-steps in between keep the band in f32 scratch, and
+// the points, q, the IB stages, the force, the seam halos and the flux are
+// f32, as the TPU kernel's resident state and outputs are
+// (pallas_step.py:1450-1462).  f rounds once per call.  The bytes fall by
+// the f_ext and f_band halves (about 20 MB at 2048^2); the arithmetic bound
+// is unchanged.
 
 #include "step.cuh"
 
@@ -374,7 +383,11 @@ __global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
   }
 }
 
-template <typename T>
+// S: the storage type of f_ext and f_band.  The sub-steps between the
+// first read and the last write keep the band in buf0 and buf1 as T, so f
+// rounds to S once per call, as the TPU kernel's resident f32 scratch
+// (pallas_step.py:1452-1462) keeps the IB feedback at full precision.
+template <typename T, typename S>
 int band_super(const void* f_ext, long long ext_plane, void* f_band,
                long long band_plane, const void* force_in, void* force_out,
                const void* us, const void* eps, const void* axl,
@@ -407,21 +420,24 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   b.force = (T*)force_out;
   b.flux_x = flux_x;
 
-  T* buf[2] = {(T*)buf0, (T*)buf1};
+  void* buf[2] = {buf0, buf1};
   const long long bplane = (long long)rows * xdim;
   const long long pts = (long long)c_num * NPT;
   const dim3 sgrid((xdim + TX - 1) / TX, (band + TY - 1) / TY);
   const int iblocks = (int)((pts + IPB - 1) / IPB);
   for (int s = 0; s < K; ++s) {
-    a.f_in = s == 0 ? (const T*)f_ext : buf[(s - 1) % 2];
+    a.f_in = s == 0 ? f_ext : buf[(s - 1) % 2];
     a.in_plane = s == 0 ? ext_plane : bplane;
     const bool last = s == K - 1;
-    a.f_out = last ? (T*)f_band : buf[s % 2];
+    a.f_out = last ? f_band : buf[s % 2];
     a.out_plane = last ? band_plane : bplane;
     a.out_rows = last ? band : rows;
     a.force = s == 0 ? (const T*)force_in : (const T*)force_out;
     a.f1out = (T*)bhalos + (long long)s * 9 * xdim;
-    int err = launch_step<T>(a, true, st);
+    int err = s == 0 ? (last ? launch_step<S, S>(a, true, st)
+                             : launch_step<S, T>(a, true, st))
+                     : (last ? launch_step<T, S>(a, true, st)
+                             : launch_step<T, T>(a, true, st));
     if (err) return err;
 
     b.us = (const T*)us + s * 2 * pts;
@@ -446,8 +462,11 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
 
 }  // namespace
 
-// C interface (ctypes), as fused_step.cu's.  X is the block's width (the
-// domain for B5, tile + 2 gx for B6); f_ext [9, rows, X] and f_band
+// C interface (ctypes), as fused_step.cu's: _f32, _f64, and _bf16 with
+// f_ext and f_band bf16 and every other array float (the points, force,
+// bhalos, q, amp, colbuf, flux and the scratch buf0 and buf1).  X is the
+// block's width (the domain for B5, tile + 2 gx for B6); f_ext [9, rows, X]
+// and f_band
 // [9, band, X] have plane strides ext_plane and band_plane (elements) and
 // must not overlap; force_in and force_out [2, band, X] must not overlap;
 // point arrays [K, (2,) c_num, 128] (axl, ay int32; c_num the block's
@@ -457,7 +476,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
 // (c_space + 2 halo, or c_space wider in B8's phase-general layout);
 // win_lo0 = -halo is B5's layout; flux_x = -1 leaves colbuf and flux
 // unused (may be NULL).
-#define IBLB_BAND_SUPER(NAME, T)                                             \
+#define IBLB_BAND_SUPER(NAME, T, S)                                          \
   extern "C" int NAME(                                                       \
       const void* f_ext, long long ext_plane, void* f_band,                  \
       long long band_plane, const void* force_in, void* force_out,           \
@@ -467,11 +486,12 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
       int xdim, int K, int c_num, int cw, int wwin, int win_lo0,             \
       int flux_x, double tau, double tau2, int forcing_trt, int deviatoric,  \
       void* stream) {                                                        \
-    return band_super<T>(f_ext, ext_plane, f_band, band_plane, force_in,     \
-                         force_out, us, eps, axl, fx, ay, fy, bhalos, buf0,  \
-                         buf1, q, amp, colbuf, flux, rows, band, xdim, K,    \
-                         c_num, cw, wwin, win_lo0, flux_x, tau, tau2,        \
-                         forcing_trt, deviatoric, stream);                   \
+    return band_super<T, S>(f_ext, ext_plane, f_band, band_plane, force_in,  \
+                            force_out, us, eps, axl, fx, ay, fy, bhalos,     \
+                            buf0, buf1, q, amp, colbuf, flux, rows, band,    \
+                            xdim, K, c_num, cw, wwin, win_lo0, flux_x, tau,  \
+                            tau2, forcing_trt, deviatoric, stream);          \
   }
-IBLB_BAND_SUPER(iblb_band_super_f32, float)
-IBLB_BAND_SUPER(iblb_band_super_f64, double)
+IBLB_BAND_SUPER(iblb_band_super_f32, float, float)
+IBLB_BAND_SUPER(iblb_band_super_f64, double, double)
+IBLB_BAND_SUPER(iblb_band_super_bf16, float, __nv_bfloat16)

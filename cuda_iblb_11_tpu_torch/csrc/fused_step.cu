@@ -35,20 +35,27 @@
 // the plain torch version (eager ops do not contract) at round-off.  The
 // constants are spelled as the JAX kernel spells them: through CS2 and CS4
 // of CS_KERNEL = 0.57735, each formed in double and rounded once to T.
+//
+// bf16 storage (the _bf16 entries, the JAX package's --dtype bfloat16):
+// f_in and f_out are bf16, widened to f32 on the load and rounded to
+// nearest even on the store; the force, the halo rows, the exposed f1 row,
+// q and fluxcol are f32, and q and fluxcol are summed from the f32 planes
+// before they round, as pallas_step.py:388-444 emits them.  Bound: f moves
+// at 2 B a value, so B2 at 2048^2 with band 128 needs 156 MB, 0.047 ms.
 
 #include "step.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename S>
 int fused_step(const void* f_in, const void* force, void* f_out, void* q,
                void* fluxcol, int ydim, int xdim, int band, int flux_x,
                double tau, double tau2, int forcing_trt, int deviatoric,
                int top_noslip, void* stream) {
   StepArgs<T> a{};
-  a.f_in = (const T*)f_in;
+  a.f_in = f_in;
   a.in_plane = (long long)ydim * xdim;
-  a.f_out = (T*)f_out;
+  a.f_out = f_out;
   a.out_plane = a.in_plane;
   a.out_rows = ydim;
   a.rows = ydim;
@@ -65,10 +72,10 @@ int fused_step(const void* f_in, const void* force, void* f_out, void* q,
   a.flux_x = flux_x;
   a.fluxcol = (T*)fluxcol;
   a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
-  return launch_step<T>(a, true, (cudaStream_t)stream);
+  return launch_step<S, S>(a, true, (cudaStream_t)stream);
 }
 
-template <typename T>
+template <typename T, typename S>
 int sharded_step(const void* f_in, long long in_plane, void* f_out,
                  long long out_plane, const void* force, const void* bhalo,
                  const void* thalo, void* f1out, void* q, void* fluxcol,
@@ -77,9 +84,9 @@ int sharded_step(const void* f_in, long long in_plane, void* f_out,
                  double tau, double tau2, int forcing_trt, int deviatoric,
                  int top_noslip, void* stream) {
   StepArgs<T> a{};
-  a.f_in = (const T*)f_in;
+  a.f_in = f_in;
   a.in_plane = in_plane;
-  a.f_out = (T*)f_out;
+  a.f_out = f_out;
   a.out_plane = out_plane;
   a.out_rows = rows;
   a.rows = rows;
@@ -99,19 +106,19 @@ int sharded_step(const void* f_in, long long in_plane, void* f_out,
   a.flux_x = flux_x;
   a.fluxcol = (T*)fluxcol;
   a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
-  return launch_step<T>(a, force != nullptr, (cudaStream_t)stream);
+  return launch_step<S, S>(a, force != nullptr, (cudaStream_t)stream);
 }
 
 // B2h: the step of fused_step without emission; band <= ydim force rows.
-template <typename T>
+template <typename T, typename S>
 int collide_stream(const void* f_in, const void* force, void* f_out,
                    int ydim, int xdim, int band, double tau, double tau2,
                    int forcing_trt, int deviatoric, int top_noslip,
                    void* stream) {
   StepArgs<T> a{};
-  a.f_in = (const T*)f_in;
+  a.f_in = f_in;
   a.in_plane = (long long)ydim * xdim;
-  a.f_out = (T*)f_out;
+  a.f_out = f_out;
   a.out_plane = a.in_plane;
   a.out_rows = ydim;
   a.rows = ydim;
@@ -124,7 +131,7 @@ int collide_stream(const void* f_in, const void* force, void* f_out,
   a.top_noslip = top_noslip;
   a.expose_row = -1;
   a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
-  return launch_step<T>(a, true, (cudaStream_t)stream, false);
+  return launch_step<S, S>(a, true, (cudaStream_t)stream, false);
 }
 
 }  // namespace
@@ -132,23 +139,27 @@ int collide_stream(const void* f_in, const void* force, void* f_out,
 // C interface (ctypes): every pointer and the stream are void*, the return
 // value is the cudaError_t of the launch (0 = success).  The launch runs on
 // the calling thread's current device, which the caller sets to the device
-// of the tensors and restores afterwards.
-#define IBLB_FUSED(NAME, T)                                                  \
+// of the tensors and restores afterwards.  Each entry is built for a compute
+// type T and a storage type S of f: (float, float) _f32, (double, double)
+// _f64 and (float, __nv_bfloat16) _bf16, whose f_in and f_out are bf16 and
+// every other array float.
+#define IBLB_FUSED(NAME, T, S)                                               \
   extern "C" int NAME(const void* f_in, const void* force, void* f_out,      \
                       void* q, void* fluxcol, int ydim, int xdim, int band,  \
                       int flux_x, double tau, double tau2, int forcing_trt,  \
                       int deviatoric, int top_noslip, void* stream) {        \
-    return fused_step<T>(f_in, force, f_out, q, fluxcol, ydim, xdim, band,   \
-                         flux_x, tau, tau2, forcing_trt, deviatoric,         \
-                         top_noslip, stream);                                \
+    return fused_step<T, S>(f_in, force, f_out, q, fluxcol, ydim, xdim,     \
+                            band, flux_x, tau, tau2, forcing_trt,            \
+                            deviatoric, top_noslip, stream);                 \
   }
-IBLB_FUSED(iblb_fused_step_f32, float)
-IBLB_FUSED(iblb_fused_step_f64, double)
+IBLB_FUSED(iblb_fused_step_f32, float, float)
+IBLB_FUSED(iblb_fused_step_f64, double, double)
+IBLB_FUSED(iblb_fused_step_bf16, float, __nv_bfloat16)
 
 // B3.  Pointers that may be null: force (a force-free block), bhalo and
 // thalo (zero rows), f1out (no exposed row, expose_row = -1), q (q_rows =
 // 0), fluxcol.
-#define IBLB_SHARDED(NAME, T)                                                \
+#define IBLB_SHARDED(NAME, T, S)                                             \
   extern "C" int NAME(const void* f_in, long long in_plane, void* f_out,     \
                       long long out_plane, const void* force,                \
                       const void* bhalo, const void* thalo, void* f1out,     \
@@ -157,27 +168,29 @@ IBLB_FUSED(iblb_fused_step_f64, double)
                       int q_rows, int flux_x, double tau, double tau2,       \
                       int forcing_trt, int deviatoric, int top_noslip,       \
                       void* stream) {                                        \
-    return sharded_step<T>(f_in, in_plane, f_out, out_plane, force, bhalo,   \
-                           thalo, f1out, q, fluxcol, rows, xdim, band, y0,   \
-                           is_bottom, is_top, expose_row, q_rows, flux_x,    \
-                           tau, tau2, forcing_trt, deviatoric, top_noslip,   \
-                           stream);                                          \
+    return sharded_step<T, S>(f_in, in_plane, f_out, out_plane, force,      \
+                              bhalo, thalo, f1out, q, fluxcol, rows, xdim,   \
+                              band, y0, is_bottom, is_top, expose_row,       \
+                              q_rows, flux_x, tau, tau2, forcing_trt,        \
+                              deviatoric, top_noslip, stream);               \
   }
-IBLB_SHARDED(iblb_sharded_step_f32, float)
-IBLB_SHARDED(iblb_sharded_step_f64, double)
+IBLB_SHARDED(iblb_sharded_step_f32, float, float)
+IBLB_SHARDED(iblb_sharded_step_f64, double, double)
+IBLB_SHARDED(iblb_sharded_step_bf16, float, __nv_bfloat16)
 
 // B2h: flags [0, 1, 1], no halos, no emission.
-#define IBLB_COLLIDE_STREAM(NAME, T)                                         \
+#define IBLB_COLLIDE_STREAM(NAME, T, S)                                      \
   extern "C" int NAME(const void* f_in, const void* force, void* f_out,      \
                       int ydim, int xdim, int band, double tau, double tau2, \
                       int forcing_trt, int deviatoric, int top_noslip,       \
                       void* stream) {                                        \
-    return collide_stream<T>(f_in, force, f_out, ydim, xdim, band, tau,      \
-                             tau2, forcing_trt, deviatoric, top_noslip,      \
-                             stream);                                        \
+    return collide_stream<T, S>(f_in, force, f_out, ydim, xdim, band, tau,   \
+                                tau2, forcing_trt, deviatoric, top_noslip,   \
+                                stream);                                     \
   }
-IBLB_COLLIDE_STREAM(iblb_collide_stream_f32, float)
-IBLB_COLLIDE_STREAM(iblb_collide_stream_f64, double)
+IBLB_COLLIDE_STREAM(iblb_collide_stream_f32, float, float)
+IBLB_COLLIDE_STREAM(iblb_collide_stream_f64, double, double)
+IBLB_COLLIDE_STREAM(iblb_collide_stream_bf16, float, __nv_bfloat16)
 
 extern "C" const char* iblb_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

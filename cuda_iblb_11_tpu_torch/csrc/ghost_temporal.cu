@@ -98,6 +98,15 @@
 // into two 512-thread blocks (two barrier domains) the time per collided
 // cell is the same, and one 512-thread block a SM (16 warps) is only
 // 1.25x slower, not 2x (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// bf16 storage (the _bf16 entry, B4 on the JAX package's --dtype
+// bfloat16; B7 shares it, but no mesh runs bf16 yet): the block is read
+// and written as bf16 and computed in f32; the rings, the stage ring, the
+// scratch between passes, the seam rows, colbuf and the flux are f32, so
+// f rounds once per call, on the last pass's store, as the TPU kernel
+// rounds once when its f32 rings go back to HBM.  The geometry is the f32
+// one (kstep_geometry sizes threads and shared memory by the compute type).
+// The call moves half the f32 bytes (142 MB at 2048^2, 0.042 ms), so the
+// arithmetic bound, which bf16 does not change, bounds it more.
 // The first version made K launches of the row kernel, K passes through
 // device memory: 1.76-1.80 ms for B4 at 2048^2, K = 16, f32
 // (chip_smoke.py; NVIDIA H100 80GB HBM3 at 700 W).
@@ -123,17 +132,21 @@ constexpr int STAGES = 4;   // level 0's input rows in flight (a power of 2)
 
 __device__ constexpr int warps32(int n) { return (n + 31) / 32 * 32; }
 
+// The f arrays are untyped here: a pass reads them as Sin and writes them
+// as Sout (kstep_kernel's template arguments), the storage type of f on
+// the call's first read and last write and the compute type T between
+// passes.
 template <typename T>
 struct KStepArgs {
-  const T* f_lo;          // rows [0, lo_rows) (lo_rows = 0: none)
+  const void* f_lo;       // rows [0, lo_rows) (lo_rows = 0: none)
   long long lo_plane;
   int lo_rows;
-  const T* f_in;          // rows [lo_rows, hi_start)
+  const void* f_in;       // rows [lo_rows, hi_start)
   long long in_plane;
-  const T* f_hi;          // rows [hi_start, rows)
+  const void* f_hi;       // rows [hi_start, rows)
   long long hi_plane;
   int hi_start;
-  T* f_out;
+  void* f_out;
   long long out_plane;
   const T* bhalos;        // [kp, 9, W]: this pass's seam rows
   T* colbuf;              // [kp, 2, rows] or nullptr
@@ -149,19 +162,19 @@ struct KStepArgs {
   Coeffs<T> k;
 };
 
-template <typename T>
-__device__ __forceinline__ const T* row_src(const KStepArgs<T>& a, int r,
-                                            long long& plane) {
+template <typename Sin, typename T>
+__device__ __forceinline__ const Sin* row_src(const KStepArgs<T>& a, int r,
+                                              long long& plane) {
   if (r < a.lo_rows) {
     plane = a.lo_plane;
-    return a.f_lo + (long long)r * a.xdim;
+    return (const Sin*)a.f_lo + (long long)r * a.xdim;
   }
   if (r >= a.hi_start) {
     plane = a.hi_plane;
-    return a.f_hi + (long long)(r - a.hi_start) * a.xdim;
+    return (const Sin*)a.f_hi + (long long)(r - a.hi_start) * a.xdim;
   }
   plane = a.in_plane;
-  return a.f_in + (long long)(r - a.lo_rows) * a.xdim;
+  return (const Sin*)a.f_in + (long long)(r - a.lo_rows) * a.xdim;
 }
 
 // Asynchronous copies global -> shared (cp.async, sm_80+), one value each.
@@ -186,7 +199,7 @@ __device__ __forceinline__ void fetch_row(const KStepArgs<T>& a, int r,
                                           int end, int gx, T* dst) {
   if (r >= 0 && r < a.rows && r < end) {
     long long plane;
-    const T* src = row_src(a, r, plane) + gx;
+    const T* src = row_src<T>(a, r, plane) + gx;
 #pragma unroll
     for (int d = 0; d < 9; ++d) copy_async(dst + d, src + d * plane);
   }
@@ -242,9 +255,14 @@ __device__ __forceinline__ void pull_level(const KStepArgs<T>& a,
   }
 }
 
-template <typename T>
+// Sin and Sout: the types the pass reads and writes f as.  Level 0 stages
+// its input rows with cp.async where Sin is T; a bf16 input (cp.async
+// copies 4, 8 or 16 bytes, not 2) is loaded row by row and widened in
+// registers, its latency hidden by the other levels' warps.
+template <typename T, typename Sin, typename Sout>
 __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
     kstep_kernel(const KStepArgs<T> a) {
+  constexpr bool kAsync = sizeof(Sin) == sizeof(T);
   // shared memory: a ring [RING][wc][9] for each level 0..kp-1, then
   // level 0's stage ring [STAGES][wc][9]; a cell's nine values in a row
   // (an odd stride: a warp's 32 columns hit 32 banks)
@@ -301,9 +319,11 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
   // level 0 copies its input rows STAGES - 1 rows ahead into its own cell
   // of the stage ring (no barrier: each loader reads only what it copied)
   T* const stage = ring + kp * level_cells + 9 * c;
-  if (active && lev == 0) {
-    for (int q = 0; q < STAGES - 1; ++q) {
-      fetch_row(a, ybase + q, y1 + kp, gx, stage + q * row_cells);
+  if constexpr (kAsync) {
+    if (active && lev == 0) {
+      for (int q = 0; q < STAGES - 1; ++q) {
+        fetch_row(a, ybase + q, y1 + kp, gx, stage + q * row_cells);
+      }
     }
   }
   __syncthreads();
@@ -311,15 +331,23 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
   for (int i = 0; i < n_it; ++i) {
     if (active && lev == 0) {
       const int r = ybase + i;
-      fetch_row(a, r + STAGES - 1, y1 + kp, gx,
-                stage + ((i + STAGES - 1) & (STAGES - 1)) * row_cells);
-      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
-      const T* in = stage + (i & (STAGES - 1)) * row_cells;
+      const bool in_block = r >= 0 && r < a.rows && r < y1 + kp;
       T f[9];
+      if constexpr (kAsync) {
+        fetch_row(a, r + STAGES - 1, y1 + kp, gx,
+                  stage + ((i + STAGES - 1) & (STAGES - 1)) * row_cells);
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
+        const T* in = stage + (i & (STAGES - 1)) * row_cells;
 #pragma unroll
-      for (int d = 0; d < 9; ++d) f[d] = in[d];
+        for (int d = 0; d < 9; ++d) f[d] = in[d];
+      } else if (in_block) {
+        long long plane;
+        const Sin* row = row_src<Sin>(a, r, plane) + gx;
+#pragma unroll
+        for (int d = 0; d < 9; ++d) f[d] = load_f(row + d * plane);
+      }
       T f1[9];
-      if (r >= 0 && r < a.rows && r < y1 + kp) {
+      if (in_block) {
         collide_cell<T, false>(f, T(0.0), T(0.0), a.k, f1);
       } else {
 #pragma unroll
@@ -358,16 +386,16 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
                    src + (j & (RING - 1)) * row_cells,
                    src + ((j + 1) & (RING - 1)) * row_cells, kp, r, gx,
                    a.colbuf != nullptr, p);
-        T* o = a.f_out + (long long)r * xdim + (x0 + c - kp);
+        Sout* o = (Sout*)a.f_out + (long long)r * xdim + (x0 + c - kp);
 #pragma unroll
-        for (int d = 0; d < 9; ++d) o[d * a.out_plane] = p[d];
+        for (int d = 0; d < 9; ++d) store_f(o + d * a.out_plane, p[d]);
       }
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, typename Sin, typename Sout>
 int launch_pass(const KStepArgs<T>& a, int threads, cudaStream_t st) {
   if (a.kp < 1 || a.wc <= 2 * a.kp || a.ly < 1 || threads < 1
       || threads > KStepLimits<T>::kThreads) {
@@ -380,15 +408,19 @@ int launch_pass(const KStepArgs<T>& a, int threads, cudaStream_t st) {
   smem = smem > IBLB_KSTEP_MIN_SMEM ? smem : IBLB_KSTEP_MIN_SMEM;
 #endif
   const cudaError_t err = cudaFuncSetAttribute(
-      kstep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kstep_kernel<T, Sin, Sout>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int wt = a.wc - 2 * a.kp;
   const dim3 grid((a.xdim + wt - 1) / wt, (a.rows + a.ly - 1) / a.ly);
-  kstep_kernel<T><<<grid, threads, smem, st>>>(a);
+  kstep_kernel<T, Sin, Sout><<<grid, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// S: the storage type of bot, f_loc, top and f_out; tmp0 and tmp1 hold T
+// between passes, so f rounds to S once per call, as the TPU kernel keeps
+// its rows in f32 rings for all K sub-steps (pallas_step.py:994-1002).
+template <typename T, typename S>
 int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
                    long long loc_plane, const void* top, long long top_plane,
                    void* f_out, long long out_plane, void* tmp0, void* tmp1,
@@ -415,12 +447,12 @@ int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
   int s0 = 0;   // the pass's first sub-step
   for (int p = 0; p < n_pass; ++p) {
     if (p == 0) {
-      a.f_lo = (const T*)bot;
+      a.f_lo = bot;
       a.lo_plane = bot_plane;
       a.lo_rows = pad;
-      a.f_in = (const T*)f_loc;
+      a.f_in = f_loc;
       a.in_plane = loc_plane;
-      a.f_hi = (const T*)top;
+      a.f_hi = top;
       a.hi_plane = top_plane;
       a.hi_start = pad + yl;
     } else {
@@ -430,14 +462,18 @@ int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
       a.in_plane = plane;
     }
     const bool last = p == n_pass - 1;
-    a.f_out = last ? (T*)f_out : tmp[p % 2];
+    a.f_out = last ? f_out : (void*)tmp[p % 2];
     a.out_plane = last ? out_plane : plane;
     a.kp = geo[4 * p];
     a.wc = geo[4 * p + 1];
     a.ly = geo[4 * p + 2];
     a.bhalos = (const T*)bhalos + (long long)s0 * 9 * xdim;
     a.colbuf = flux_owned ? (T*)colbuf + (long long)s0 * 2 * rows : nullptr;
-    const int err = launch_pass<T>(a, geo[4 * p + 3], st);
+    const int th = geo[4 * p + 3];
+    const int err = p == 0 ? (last ? launch_pass<T, S, S>(a, th, st)
+                                   : launch_pass<T, S, T>(a, th, st))
+                           : (last ? launch_pass<T, T, S>(a, th, st)
+                                   : launch_pass<T, T, T>(a, th, st));
     if (err) return err;
     s0 += a.kp;
   }
@@ -460,7 +496,7 @@ int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
 // (both unused, may be NULL, when flux_owned is 0).  geo is a host array
 // of n_pass rows (kp, Wc, Ly, threads), the passes of kstep_geometry;
 // their kp add up to K.
-#define IBLB_GHOST(NAME, T)                                                  \
+#define IBLB_GHOST(NAME, T, S)                                               \
   extern "C" int NAME(const void* bot, long long bot_plane,                  \
                       const void* f_loc, long long loc_plane,                \
                       const void* top, long long top_plane, void* f_out,     \
@@ -471,12 +507,14 @@ int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
                       double tau, double tau2, int forcing_trt,              \
                       int deviatoric, int top_noslip, int n_pass,            \
                       const int* geo, void* stream) {                        \
-    return ghost_temporal<T>(bot, bot_plane, f_loc, loc_plane, top,          \
-                             top_plane, f_out, out_plane, tmp0, tmp1,        \
-                             bhalos, colbuf, flux, yl, pad, xdim, K, inject, \
-                             is_top, seam_row, flux_lane, flux_owned, tau,   \
-                             tau2, forcing_trt, deviatoric, top_noslip,      \
-                             n_pass, geo, stream);                           \
+    return ghost_temporal<T, S>(bot, bot_plane, f_loc, loc_plane, top,       \
+                                top_plane, f_out, out_plane, tmp0, tmp1,     \
+                                bhalos, colbuf, flux, yl, pad, xdim, K,      \
+                                inject, is_top, seam_row, flux_lane,         \
+                                flux_owned, tau, tau2, forcing_trt,          \
+                                deviatoric, top_noslip, n_pass, geo,         \
+                                stream);                                     \
   }
-IBLB_GHOST(iblb_ghost_temporal_f32, float)
-IBLB_GHOST(iblb_ghost_temporal_f64, double)
+IBLB_GHOST(iblb_ghost_temporal_f32, float, float)
+IBLB_GHOST(iblb_ghost_temporal_f64, double, double)
+IBLB_GHOST(iblb_ghost_temporal_bf16, float, __nv_bfloat16)

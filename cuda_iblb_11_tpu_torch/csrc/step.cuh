@@ -46,32 +46,61 @@
 //
 // What bounds it on an H100: memory.  Per f32 cell it reads 9 f values
 // (36 B) plus the force inside the band (8 B) and writes 9 f values (36 B)
-// plus q inside the band (12 B): about 80 B/cell.  The 1.33x halo re-read
+// plus q inside the band (12 B): about 80 B/cell (in bf16 storage f moves
+// at 2 B a value, about 44 B/cell).  The 1.33x halo re-read
 // of f (34*10 / (32*8)) mostly hits L2.  About 200 flop/cell is far below
 // the card's f32 (and f64) rate.
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "collide.cuh"
 
 namespace {
+
+// Storage and compute types.  Every kernel computes in T (float or double)
+// and reads and writes f in HBM as a storage type S: T itself, or
+// __nv_bfloat16 under bf16 storage with T = float, as the TPU kernels keep
+// f in HBM at the storage dtype and compute in f32 (pallas_step.py:
+// 482-497).  A load widens exactly; a store rounds to nearest even
+// (__float2bfloat16_rn, as torch's .to(torch.bfloat16) and JAX's astype
+// round).  Everything else (force, halos, exposed rows, q, flux columns)
+// stays in T.
+template <typename T>
+__device__ __forceinline__ T load_f(const T* p) {
+  return *p;
+}
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+template <typename S, typename T>
+__device__ __forceinline__ void store_f(S* p, T v) {
+  *p = v;
+}
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int TX = 32;
 constexpr int TY = 8;
 constexpr int SX = TX + 2;
 constexpr int SY = TY + 2;
 
+// T is the compute type.  The f arrays are untyped: step_kernel reads
+// f_in, f_lo and f_hi as its Sin and writes f_out as its Sout (B5's first
+// and last sub-steps read and write the storage type, the resident ones T).
 template <typename T>
 struct StepArgs {
-  const T* f_in;
+  const void* f_in;
   long long in_plane;     // elements between populations of f_in
-  const T* f_lo = nullptr;  // rows [0, lo_rows) (lo_rows = 0: none)
+  const void* f_lo = nullptr;  // rows [0, lo_rows) (lo_rows = 0: none)
   long long lo_plane = 0;
   int lo_rows = 0;
-  const T* f_hi = nullptr;  // rows [hi_start, rows)
+  const void* f_hi = nullptr;  // rows [hi_start, rows)
   long long hi_plane = 0;
   int hi_start = 1 << 30;
-  T* f_out;
+  void* f_out;
   long long out_plane;
   int out_rows;           // rows written to f_out (<= rows)
   int rows;
@@ -95,8 +124,10 @@ struct StepArgs {
   Coeffs<T> k;
 };
 
-template <typename T, bool kForced, bool kEmit = true>
-__global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
+template <typename T, typename Sin, typename Sout, bool kForced,
+          bool kEmit = true>
+__global__ void __launch_bounds__(TX * TY)
+    step_kernel(const StepArgs<T> a) {
   __shared__ T s[9][SY][SX];
   const int x0 = blockIdx.x * TX;
   const int r0 = blockIdx.y * TY;
@@ -111,22 +142,22 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
     if (gx < 0) gx += xdim;
     T f1[9];
     if (r >= 0 && r < a.rows) {
-      const T* src = a.f_in;
+      const Sin* src = (const Sin*)a.f_in;
       long long plane = a.in_plane;
       int rs = r - a.lo_rows;
       if (r < a.lo_rows) {
-        src = a.f_lo;
+        src = (const Sin*)a.f_lo;
         plane = a.lo_plane;
         rs = r;
       } else if (r >= a.hi_start) {
-        src = a.f_hi;
+        src = (const Sin*)a.f_hi;
         plane = a.hi_plane;
         rs = r - a.hi_start;
       }
       const long long js = (long long)rs * xdim + gx;
       T fi[9];
 #pragma unroll
-      for (int d = 0; d < 9; ++d) fi[d] = src[d * plane + js];
+      for (int d = 0; d < 9; ++d) fi[d] = load_f(src + d * plane + js);
       T gxv = T(0.0);
       T gyv = T(0.0);
       const int yg = a.y0 + r;
@@ -192,7 +223,9 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
   const long long j = (long long)r * xdim + x;
   if (r < a.out_rows) {
 #pragma unroll
-    for (int d = 0; d < 9; ++d) a.f_out[d * a.out_plane + j] = p[d];
+    for (int d = 0; d < 9; ++d) {
+      store_f((Sout*)a.f_out + d * a.out_plane + j, p[d]);
+    }
   }
   if constexpr (kEmit) {
     if (r < a.q_rows || (a.fluxcol && x == a.flux_x)) {
@@ -213,18 +246,19 @@ __global__ void __launch_bounds__(TX * TY) step_kernel(const StepArgs<T> a) {
 }
 
 // emit = false: the forced instantiation without emission (B2h); the
-// expose_row, q and fluxcol arguments are then ignored.
-template <typename T>
+// expose_row, q and fluxcol arguments are then ignored.  f is read as Sin
+// and written as Sout.
+template <typename Sin, typename Sout, typename T>
 int launch_step(const StepArgs<T>& a, bool forced, cudaStream_t stream,
                 bool emit = true) {
   const dim3 block(TX, TY);
   const dim3 grid((a.xdim + TX - 1) / TX, (a.rows + TY - 1) / TY);
   if (!emit) {
-    step_kernel<T, true, false><<<grid, block, 0, stream>>>(a);
+    step_kernel<T, Sin, Sout, true, false><<<grid, block, 0, stream>>>(a);
   } else if (forced) {
-    step_kernel<T, true><<<grid, block, 0, stream>>>(a);
+    step_kernel<T, Sin, Sout, true><<<grid, block, 0, stream>>>(a);
   } else {
-    step_kernel<T, false><<<grid, block, 0, stream>>>(a);
+    step_kernel<T, Sin, Sout, false><<<grid, block, 0, stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,11 @@
 """npz checkpoint/resume in the JAX package's format
 (cuda_iblb_11_tpu/io/checkpoint.py:28-78): arrays f, force, lasts, q, it
 plus the SimConfig as JSON, so a checkpoint written by either package
-resumes in the other.  The sharded orbax format waits for the
-multi-device slice (ROADMAP Queue 1 item 12)."""
+resumes in the other.  A bf16 state's f is stored as its 2-byte bits
+(|V2, core/state.py), the bytes JAX's save writes for its bf16 f, so the
+port resumes from JAX's bf16 checkpoints (JAX's own load refuses them:
+ROADMAP Queue 3).  The sharded orbax format waits for the multi-device
+slice (ROADMAP Queue 1 item 12)."""
 
 from __future__ import annotations
 

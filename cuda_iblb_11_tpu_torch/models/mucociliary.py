@@ -11,6 +11,11 @@ Backends: "cuda" (the hand kernels of csrc/ through their wrappers in
 ops/), "torch" (their plain versions, on any device), "auto" ("cuda" on a
 CUDA device, "torch" on the CPU; the reason is kept in backend_reason).
 
+dtype bfloat16 is the JAX package's fast mode: f is stored in bf16
+(deviatoric storage only), everything else and all arithmetic in f32; on
+the cuda backend the kernels' _bf16 entries run it (one device only: a
+mesh refuses it).
+
 ib_x_edge "reference" is the strict-parity quirk mode (JAX
 mucociliary.py:105-111, 337-346): the step is collide + stream without
 emission (B2h, ops/collide_stream), then the stencil IB of ops/ib on the
@@ -67,7 +72,6 @@ from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
 
 # Kept in the errors so a user can find what is still to port.
 _QUIRK_ITEM = "ROADMAP Queue 1 item 12 (the quirk IB on a mesh)"
-_BF16_ITEM = "ROADMAP Queue 1 item 2 (bf16 storage on the card)"
 
 # the reference hardcodes the flux divisor (ImmersedBoundary.cu:261)
 _FLUX_DIVISOR = 192.0
@@ -147,9 +151,11 @@ class MucociliarySim:
             raise ValueError(f"unknown backend {backend!r} (auto|cuda|torch)")
         if backend == "cuda" and not on_cuda:
             raise ValueError("backend 'cuda' needs a CUDA device")
-        if on_cuda and self.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"bf16 state on a CUDA device: {_BF16_ITEM}")
+        if backend == "cuda" and self.dtype == torch.bfloat16 \
+                and self.storage != "deviatoric":
+            # as the JAX package's pallas backend refuses it on
+            # construction (pallas_step.py:487-488)
+            raise ValueError("bf16 storage requires deviatoric mode")
         self.backend = backend
         if ib_x_edge not in ("periodic", "reference"):
             raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")

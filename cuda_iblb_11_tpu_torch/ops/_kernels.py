@@ -44,7 +44,7 @@ VARIANTS = {"identity_collide": ["-DIBLB_IDENTITY_COLLIDE"],
 
 _P, _LL, _I, _D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_double)
-# argument types of each C entry point, by name (both dtypes)
+# argument types of each C entry point, by name (float32 and float64)
 SIGNATURES = {
     "iblb_fused_step": [_P] * 5 + [_I] * 4 + [_D] * 2 + [_I] * 3 + [_P],
     "iblb_sharded_step": ([_P, _LL, _P, _LL] + [_P] * 6 + [_I] * 9
@@ -63,32 +63,64 @@ SIGNATURES_F32 = {
     "iblb_probe_chain": [_P, _P, _LL, _I, _I, _P],
     "iblb_probe_empty": [_I, _P],
 }
+# the entry points with a bf16-storage build (f in bf16, all else float32):
+# the single-device path's B2, B3, B2h, B4 (B7's driver) and B5/B6 (B8's)
+BF16_ENTRIES = ("iblb_fused_step", "iblb_sharded_step", "iblb_collide_stream",
+                "iblb_ghost_temporal", "iblb_band_super")
+
+
+def _suffixes():
+    import torch
+
+    return {torch.float32: "_f32", torch.float64: "_f64",
+            torch.bfloat16: "_bf16"}
+
+
+def entry_name(name: str, dtype) -> str:
+    """The C symbol of entry point ``name`` for tensors of ``dtype`` (f's
+    storage dtype); raises for a dtype the entry was not built for, so no
+    dtype ever reaches another dtype's kernel."""
+    sfx = _suffixes().get(dtype)
+    built = (sfx == "_bf16" and name in BF16_ENTRIES
+             or sfx in ("_f32", "_f64") and name in SIGNATURES
+             or sfx == "_f32" and name in SIGNATURES_F32)
+    if not built:
+        raise NotImplementedError(
+            f"{name} has no {dtype} kernel (built: float32, float64"
+            + (", bfloat16" if name in BF16_ENTRIES else "") + ")"
+            + ("; bf16 for B0 and the mesh: ROADMAP Queue 1 item 12"
+               if sfx == "_bf16" else ""))
+    return name + sfx
 
 
 class KernelLibrary:
-    """The loaded library, with how it was built."""
+    """The loaded library, with how it was built.  Every entry point is
+    bound on load, so a stale or partial build raises here; bf16=False
+    binds only the float32 and float64 entries (another checkout's build,
+    held against this one for those: probe_band_super.other_library)."""
 
-    def __init__(self, path: str, build_seconds: float, build_log: str):
+    def __init__(self, path: str, build_seconds: float, build_log: str,
+                 bf16: bool = True):
         self.path = path
         self.build_seconds = build_seconds   # 0.0 when reused from disk
         self.build_log = build_log
         self.lib = ctypes.CDLL(path)
         entries = [(n + sfx, a) for n, a in SIGNATURES.items()
                    for sfx in ("_f32", "_f64")]
+        if bf16:
+            entries += [(n + "_bf16", SIGNATURES[n]) for n in BF16_ENTRIES]
         entries += [(n + "_f32", a) for n, a in SIGNATURES_F32.items()]
         for name, argtypes in entries:
-            fn = getattr(self.lib, name)
+            try:
+                fn = getattr(self.lib, name)
+            except AttributeError as e:
+                raise RuntimeError(
+                    f"{path} has no entry point {name}: a stale or partial "
+                    "build (delete it to rebuild from csrc/)") from e
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         self.lib.iblb_error_string.argtypes = [ctypes.c_int]
         self.lib.iblb_error_string.restype = ctypes.c_char_p
-
-    def entry(self, name: str, dtype):
-        """The C entry point ``name`` for float32 or float64 tensors."""
-        import torch
-
-        return getattr(self.lib, name + ("_f32" if dtype == torch.float32
-                                         else "_f64"))
 
     def check(self, err: int, what: str) -> None:
         if err:
@@ -228,10 +260,12 @@ def check_scheme(dtype, walls, forcing, storage, what: str) -> None:
     """The dtypes, walls, forcings and storages the kernels take."""
     import torch
 
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise NotImplementedError(
-            f"{what} kernel takes float32/float64, got {dtype} (bf16 "
-            "storage: ROADMAP Queue 1 item 2)")
+            f"{what} kernel takes float32/float64/bfloat16 f, got {dtype}")
+    if dtype == torch.bfloat16 and storage != "deviatoric":
+        # pallas_step.py:487-488, :2260-2262
+        raise ValueError("bf16 storage requires deviatoric mode")
     if walls.left != "periodic" or walls.bottom != "noslip" \
             or walls.top not in ("slip", "noslip"):
         raise NotImplementedError(
@@ -297,8 +331,9 @@ def launch(name: str, dtype, device, *args) -> None:
     and raise on a launch error."""
     import torch
 
+    symbol = entry_name(name, dtype)   # raises before a library loads
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.entry(name, dtype)(*args, stream)
+        err = getattr(lib.lib, symbol)(*args, stream)
     lib.check(err, f"{name} launch")

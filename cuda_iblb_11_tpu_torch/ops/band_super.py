@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
@@ -128,7 +129,8 @@ def band_super_reference(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
 
 def check_points(pts, K, c, dtype, device):
     """pts = (us, eps, axl, fx, ay, fy) are c point blocks of K sub-steps:
-    us [K, 2, c, 128], the others [K, c, 128], the anchors int32."""
+    us [K, 2, c, 128], the others [K, c, 128], the anchors int32 and the
+    rest ``dtype`` (the compute type: float32 under bf16 storage)."""
     _kernels.check_tensor("us", pts[0], (K, 2, c, NPT), dtype, device)
     for name, t, tdt in zip(("eps", "axl", "fx", "ay", "fy"), pts[1:],
                             (dtype, torch.int32, dtype, torch.int32, dtype)):
@@ -144,9 +146,13 @@ def launch_band_super(f_ext, force, pts, cfg, wwin, win_lo0, flux_x, walls,
     is wwin wide; flux_x is the flux column in block columns, or None (no
     flux).  f_ext and ``out`` ([9, band, W]) may be row ranges of larger
     states and must not overlap.  Returns (f_band, bhalos, force_new, flux
-    or None).  B5, B6 and B8 call it with their layouts."""
+    or None).  B5, B6 and B8 call it with their layouts.  Under bf16
+    storage f_ext and ``out`` are bf16 and everything else float32: the
+    force, the points, the outputs and the two resident buffers, so the
+    band rounds once per call, not once per sub-step."""
     dt, dev = f_ext.dtype, f_ext.device
     _kernels.check_scheme(dt, walls, forcing, storage, what)
+    cdt = aux_dtype(dt)
     us = pts[0]
     if us.dim() != 4 or us.shape[0] < 1:
         raise ValueError(f"us must be [K, 2, c, 128], got {tuple(us.shape)}")
@@ -159,22 +165,22 @@ def launch_band_super(f_ext, force, pts, cfg, wwin, win_lo0, flux_x, walls,
     if flux_x is not None and not 0 <= flux_x < width:
         raise ValueError(f"flux_x {flux_x} outside [0, {width})")
     _kernels.check_planes("f_ext", f_ext, (9, rows, width), dt, dev)
-    _kernels.check_tensor("force", force, (2, band, width), dt, dev)
-    check_points(pts, K, c, dt, dev)
+    _kernels.check_tensor("force", force, (2, band, width), cdt, dev)
+    check_points(pts, K, c, cdt, dev)
     if out is None:
         out = torch.empty((9, band, width), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, band, width), dt, dev)
     _kernels.check_disjoint("out", out, "f_ext", f_ext)
-    bufs = [torch.empty((9, rows, width), dtype=dt, device=dev)
+    bufs = [torch.empty((9, rows, width), dtype=cdt, device=dev)
             if K > 1 + i else None for i in range(2)]
-    bhalos = torch.empty((K, 9, width), dtype=dt, device=dev)
-    force_new = torch.empty((2, band, width), dtype=dt, device=dev)
-    q = torch.empty((3, band, width), dtype=dt, device=dev)
-    amp = torch.empty((2, c, NPT), dtype=dt, device=dev)
+    bhalos = torch.empty((K, 9, width), dtype=cdt, device=dev)
+    force_new = torch.empty((2, band, width), dtype=cdt, device=dev)
+    q = torch.empty((3, band, width), dtype=cdt, device=dev)
+    amp = torch.empty((2, c, NPT), dtype=cdt, device=dev)
     colbuf = flux = None
     if flux_x is not None:
-        colbuf = torch.empty((K, band), dtype=dt, device=dev)
-        flux = torch.empty((K,), dtype=dt, device=dev)
+        colbuf = torch.empty((K, band), dtype=cdt, device=dev)
+        flux = torch.empty((K,), dtype=cdt, device=dev)
     _kernels.launch(
         "iblb_band_super", dt, dev, f_ext.data_ptr(), f_ext.stride(0),
         out.data_ptr(), out.stride(0), force.data_ptr(),

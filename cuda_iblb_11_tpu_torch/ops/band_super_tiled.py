@@ -38,6 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
@@ -157,6 +158,7 @@ def band_super_tiled(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
                          f"{f_ext.device}")
     dt, dev = f_ext.dtype, f_ext.device
     _kernels.check_scheme(dt, walls, forcing, storage, "band_super_tiled")
+    cdt = aux_dtype(dt)
     band, xdim = cfg.force_band, cfg.xdim
     if us.dim() != 4 or us.shape[0] < 1:
         raise ValueError(f"us must be [K, 2, c, 128], got {tuple(us.shape)}")
@@ -166,22 +168,22 @@ def band_super_tiled(f_ext, force, us, eps, axl, fx, ay, fy, cfg, halo,
     lay = tile_layout(cfg, halo, tile_x, gx, K)
     rows = f_ext.shape[1]
     _kernels.check_planes("f_ext", f_ext, (9, rows, xdim), dt, dev)
-    _kernels.check_tensor("force", force, (2, band, xdim), dt, dev)
+    _kernels.check_tensor("force", force, (2, band, xdim), cdt, dev)
     # the whole domain's points: each tile takes its subset itself
-    check_points((us, eps, axl, fx, ay, fy), K, cfg.c_num, dt, dev)
+    check_points((us, eps, axl, fx, ay, fy), K, cfg.c_num, cdt, dev)
     if out is None:
         out = torch.empty((9, band, xdim), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, band, xdim), dt, dev)
     _kernels.check_disjoint("out", out, "f_ext", f_ext)
     _, cols = _tile_index(lay, dev)
     pts = _tile_points(lay, (us, eps, axl, fx, ay, fy), dev)
-    bhalos = torch.empty((K, 9, xdim), dtype=dt, device=dev)
-    force_new = torch.empty((2, band, xdim), dtype=dt, device=dev)
+    bhalos = torch.empty((K, 9, xdim), dtype=cdt, device=dev)
+    force_new = torch.empty((2, band, xdim), dtype=cdt, device=dev)
     flux = None
     # one tile's gathered inputs and its f_band, reused by every tile in
     # stream order
     f_t = torch.empty((9, rows, lay.txe), dtype=dt, device=dev)
-    force_t = torch.empty((2, band, lay.txe), dtype=dt, device=dev)
+    force_t = torch.empty((2, band, lay.txe), dtype=cdt, device=dev)
     fb_t = torch.empty((9, band, lay.txe), dtype=dt, device=dev)
     inner = slice(gx, gx + tile_x)
     for t in range(lay.n_tiles):

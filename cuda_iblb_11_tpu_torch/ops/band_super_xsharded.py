@@ -109,7 +109,7 @@ def band_super_xsharded(flags, f_ext, force, us, eps, axl, fx, ay, fy, cfg,
         lay.win_lo0, lane if owned else None, walls, forcing, storage,
         "band_super_xsharded", out)
     if flux is None:     # a shard without the flux column
-        flux = torch.zeros((us.shape[0],), dtype=f_ext.dtype,
+        flux = torch.zeros((us.shape[0],), dtype=force_new.dtype,
                            device=f_ext.device)
     band_super_xsharded.launches += 1
     return out, bhalos, force_new, flux

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.ib_band import pad_band
@@ -40,7 +41,8 @@ def collide_stream(f, force, tau, tau2, walls=ref.REFERENCE_WALLS,
                    forcing="trt_split", storage="raw", out=None):
     """f_new for one step.  CUDA tensors launch the hand kernel, writing
     into ``out`` when given (a buffer distinct from f: the caller swaps the
-    two); CPU tensors take the plain version."""
+    two); under bf16 storage f and ``out`` are bf16 and the force float32.
+    CPU tensors take the plain version."""
     if f.device.type == "cpu":
         return collide_stream_reference(f, force, tau, tau2, walls, forcing,
                                          storage, out)
@@ -54,7 +56,8 @@ def collide_stream(f, force, tau, tau2, walls=ref.REFERENCE_WALLS,
     if not 1 <= band <= ydim:
         raise ValueError(f"force band {band} outside [1, {ydim}]")
     _kernels.check_tensor("f", f, (9, ydim, xdim), f.dtype, f.device)
-    _kernels.check_tensor("force", force, (2, band, xdim), f.dtype, f.device)
+    _kernels.check_tensor("force", force, (2, band, xdim),
+                          aux_dtype(f.dtype), f.device)
     if out is None:
         out = torch.empty_like(f)
     _kernels.check_tensor("out", out, f.shape, f.dtype, f.device)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from cuda_iblb_11_tpu_torch.core.lattice import CX, CY
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.ib_band import pad_band
@@ -80,7 +81,7 @@ def _check(f, force_band, cfg, walls, forcing, storage, out):
         raise ValueError(f"flux_x {cfg.flux_x} outside [0, {xdim})")
     _kernels.check_tensor("f", f, (9, ydim, xdim), f.dtype, f.device)
     _kernels.check_tensor("force", force_band, (2, cfg.force_band, xdim),
-                          f.dtype, f.device)
+                          aux_dtype(f.dtype), f.device)
     if out is not None:
         _kernels.check_tensor("out", out, f.shape, f.dtype, f.device)
         _kernels.check_disjoint("out", out, "f", f)
@@ -90,7 +91,9 @@ def fused_substep(f, force_band, cfg, walls=ref.REFERENCE_WALLS,
                   forcing="trt_split", storage="raw", out=None):
     """(f_new, q, fluxcol) for one step.  CUDA tensors launch the hand
     kernel, writing f_new into ``out`` when given (a buffer distinct from
-    f: the caller swaps the two); CPU tensors take the plain version."""
+    f: the caller swaps the two); CPU tensors take the plain version.
+    Under bf16 storage f and f_new are bf16 and the force, q and fluxcol
+    float32."""
     if f.device.type == "cpu":
         return fused_substep_reference(f, force_band, cfg, walls, forcing,
                                        storage, out)
@@ -100,8 +103,9 @@ def fused_substep(f, force_band, cfg, walls=ref.REFERENCE_WALLS,
     ydim, xdim, band = cfg.ydim, cfg.xdim, cfg.force_band
     if out is None:
         out = torch.empty_like(f)
-    q = torch.empty((3, band, xdim), dtype=f.dtype, device=f.device)
-    fluxcol = torch.empty((2, ydim), dtype=f.dtype, device=f.device)
+    cdt = aux_dtype(f.dtype)
+    q = torch.empty((3, band, xdim), dtype=cdt, device=f.device)
+    fluxcol = torch.empty((2, ydim), dtype=cdt, device=f.device)
     _kernels.launch(
         "iblb_fused_step", f.dtype, f.device, f.data_ptr(),
         force_band.data_ptr(), out.data_ptr(), q.data_ptr(),
@@ -181,8 +185,10 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
     overlap; the exposed row goes into ``f1out`` ([9, X]) when given.  The
     block's width X may be an x-shard's xl < XDIM (the force then holds the
     shard's columns): the x-roll wraps the block, and the caller repairs
-    its two edge columns (parallel/sharded.py, _patch_x_seams).  CPU
-    tensors take the plain version."""
+    its two edge columns (parallel/sharded.py, _patch_x_seams).  Under
+    bf16 storage f_loc and ``out`` are bf16 and the force, the halos, the
+    exposed row, q and fluxcol float32.  CPU tensors take the plain
+    version."""
     if f_loc.device.type == "cpu":
         return sharded_fused_substep_reference(
             flags, f_loc, force_band, bhalo, thalo, cfg, walls, forcing,
@@ -192,15 +198,16 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
                          f"{f_loc.device}")
     dt, dev = f_loc.dtype, f_loc.device
     _kernels.check_scheme(dt, walls, forcing, storage, "sharded_fused_step")
+    cdt = aux_dtype(dt)
     y0, is_bottom, is_top = (int(v) for v in flags)
     _, rows, xdim = f_loc.shape
     band = cfg.force_band
     _kernels.check_planes("f_loc", f_loc, (9, rows, xdim), dt, dev)
     if force_band is not None:
-        _kernels.check_tensor("force", force_band, (2, band, xdim), dt, dev)
+        _kernels.check_tensor("force", force_band, (2, band, xdim), cdt, dev)
     for name, h in (("bhalo", bhalo), ("thalo", thalo), ("f1out", f1out)):
         if h is not None:
-            _kernels.check_tensor(name, h, (9, xdim), dt, dev)
+            _kernels.check_tensor(name, h, (9, xdim), cdt, dev)
     if expose_row is not None and not 0 <= expose_row < rows:
         raise ValueError("expose_f1_row outside the local block")
     if emit_moments and (y0 != 0 or rows < band or xdim != cfg.xdim):
@@ -211,11 +218,11 @@ def sharded_fused_substep(flags, f_loc, force_band, bhalo, thalo, cfg,
     _kernels.check_planes("out", out, (9, rows, xdim), dt, dev)
     _kernels.check_disjoint("out", out, "f_loc", f_loc)
     if expose_row is not None and f1out is None:
-        f1out = torch.empty((9, xdim), dtype=dt, device=dev)
+        f1out = torch.empty((9, xdim), dtype=cdt, device=dev)
     q = fluxcol = None
     if emit_moments:
-        q = torch.empty((3, band, xdim), dtype=dt, device=dev)
-        fluxcol = torch.empty((2, rows), dtype=dt, device=dev)
+        q = torch.empty((3, band, xdim), dtype=cdt, device=dev)
+        fluxcol = torch.empty((2, rows), dtype=cdt, device=dev)
     _kernels.launch(
         "iblb_sharded_step", dt, dev, f_loc.data_ptr(), f_loc.stride(0),
         out.data_ptr(), out.stride(0), _kernels.ptr(force_band),

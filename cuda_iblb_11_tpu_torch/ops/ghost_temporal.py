@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from cuda_iblb_11_tpu_torch.core.lattice import CX
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.fused_step import (
@@ -47,7 +48,8 @@ from cuda_iblb_11_tpu_torch.ops.temporal import check_ghost
 SEAM_DIRS = (2, 5, 6)   # the up-going populations the seam row pulls
 
 # The K-step kernel's limits (csrc/ghost_temporal.cu): levels per pass
-# (both types), threads per CUDA block (its __launch_bounds__), rows per
+# (every type), threads per CUDA block (its __launch_bounds__, by the
+# compute type: bf16 storage computes in float32), rows per
 # level's ring, level 0's input rows in flight; an H100's shared memory per
 # CUDA block and per SM, threads per SM.
 KB = 8
@@ -132,6 +134,7 @@ def _threads(kp, wc):
 
 
 def _pass_geometry(rows, width, kp, dtype, n_sm):
+    """One pass of depth kp; dtype is the compute type."""
     es = torch.empty((), dtype=dtype).element_size()
     wc = min(SMEM_BLOCK // ((RING * kp + STAGES) * 9 * es), width + 2 * kp)
     while wc > 2 * kp and _threads(kp, wc) > MAX_THREADS[dtype]:
@@ -174,19 +177,22 @@ def _geometry(yl, pad, width, K, dtype, n_sm):
 def kstep_geometry(yl, pad, width, K, dtype, n_sm=H100_SMS):
     """The passes of a K-step call on a block of yl rows with pad ghost
     rows a side (B4: pad = 0; B7 refuses K > pad and yl < pad) and width
-    columns, in float32 or float64, on a card of n_sm SMs: ceil(K / KB)
-    passes of near-equal depth, each as wide as the kernel's threads and
-    shared memory allow, its rows cut into segments that fill the SMs in
-    the fewest row iterations."""
+    columns, with f stored in float32, float64 or bfloat16, on a card of
+    n_sm SMs: ceil(K / KB) passes of near-equal depth, each as wide as the
+    kernel's threads and shared memory allow, its rows cut into segments
+    that fill the SMs in the fewest row iterations.  Threads and shared
+    memory are sized by the compute type (the rings, the stage ring and the
+    scratch between passes hold it), so a bf16 call has the float32
+    geometry."""
     if pad:
         check_ghost(K, yl, pad)
     if K < 1 or yl < 1 or width < 1:
         raise ValueError(f"K-step block needs K, yl, width >= 1, got {K}, "
                          f"{yl}, {width}")
-    if dtype not in MAX_THREADS:
-        raise NotImplementedError(f"K-step kernel takes float32/float64, "
-                                  f"got {dtype}")
-    return _geometry(yl, pad, width, K, dtype, n_sm)
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise NotImplementedError(f"K-step kernel takes float32/float64/"
+                                  f"bfloat16 f, got {dtype}")
+    return _geometry(yl, pad, width, K, aux_dtype(dtype), n_sm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,9 +241,12 @@ def launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
     tensors: B7's block, or B4's with bot and top None (no ghost rows).
     f_loc, bot, top and ``out`` may be row ranges of larger tensors
     (contiguous rows); ``out`` overlaps none of the inputs.  Returns
-    (out [9, yl + 2 pad, W], flux [K])."""
+    (out [9, yl + 2 pad, W], flux [K]).  Under bf16 storage f_loc, bot,
+    top and ``out`` are bf16 and bhalos, the scratch and the flux
+    float32."""
     dt, dev = f_loc.dtype, f_loc.device
     _kernels.check_scheme(dt, walls, forcing, storage, what)
+    cdt = aux_dtype(dt)
     inject, is_top, seam_row, lane, owned = (int(v) for v in flags)
     _, yl, width = f_loc.shape
     pad = 0 if bot is None else bot.shape[1]
@@ -254,18 +263,18 @@ def launch_k_steps(flags, f_loc, bot, top, bhalos, cfg, walls, forcing,
     ghosts = (("bot", bot), ("top", top)) if pad else ()
     for name, t in ghosts:
         _kernels.check_planes(name, t, (9, pad, width), dt, dev)
-    _kernels.check_tensor("bhalos", bhalos, (K, 9, width), dt, dev)
+    _kernels.check_tensor("bhalos", bhalos, (K, 9, width), cdt, dev)
     geo = kstep_geometry(yl, pad, width, K, dt, _sm_count(dev))
     if out is None:
         out = torch.empty((9, rows, width), dtype=dt, device=dev)
     _kernels.check_planes("out", out, (9, rows, width), dt, dev)
     for name, t in (("f_loc", f_loc),) + ghosts:
         _kernels.check_disjoint("out", out, name, t)
-    tmp = [torch.empty((9, rows, width), dtype=dt, device=dev)
+    tmp = [torch.empty((9, rows, width), dtype=cdt, device=dev)
            if geo.hbm_passes > 1 + i else None for i in range(2)]
-    colbuf = (torch.empty((K, 2, rows), dtype=dt, device=dev) if owned
+    colbuf = (torch.empty((K, 2, rows), dtype=cdt, device=dev) if owned
               else None)
-    flux = (torch.empty if owned else torch.zeros)((K,), dtype=dt,
+    flux = (torch.empty if owned else torch.zeros)((K,), dtype=cdt,
                                                    device=dev)
     geo_arr = geo.geo_array()
     _kernels.launch(

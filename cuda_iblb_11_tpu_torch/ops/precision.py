@@ -1,4 +1,5 @@
-"""Full-f32 contractions whatever the caller set: ``full_f32``.
+"""Full-f32 contractions whatever the caller set: ``full_f32``; and how
+far two bf16 arrays lie apart: ``bf16_agreement``.
 
 The port's f32 contractions (the IB band matmuls of ops/ib_band.py, the
 stencil spread and flux of ops/ib.py, B5's plain version, the sharded flux
@@ -71,3 +72,44 @@ class full_f32(contextlib.ContextDecorator):
             saved, full_f32._saved = full_f32._saved, None
             _restore(saved)
         return False
+
+
+# Below this share of a plane's largest magnitude, a bf16 value is not
+# resolved by the f32 arithmetic that made it: the collide's f32 round-off
+# is about 2^-23 of the largest terms, which is one bf16 ulp (2^-8 of the
+# value, at worst) of a value 2^-15 of them.  bf16_agreement counts ulps
+# there at this floor.
+BF16_ULP_FLOOR = 2.0 ** -14
+
+
+def bf16_agreement(got, want):
+    """(bit_equal_share, max_ulps, max_ulps_floored) of two bf16 tensors of
+    one shape: the share of elements whose bits are equal, the largest
+    difference in bf16 ulps at the larger of the two values' magnitudes,
+    and the same with each magnitude raised to at least BF16_ULP_FLOOR
+    times the largest |want| of its plane (the leading index).  Two bf16 arrays
+    rounded from f32 results that differ at f32 round-off agree bit for
+    bit almost everywhere and lie at most one floored ulp apart; the
+    unfloored count also reports the values near zero, where f32
+    cancellation leaves a few ulps of their own size."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16 \
+            or got.shape != want.shape:
+        raise ValueError(f"bf16_agreement takes two bf16 tensors of one "
+                         f"shape, got {got.dtype} {tuple(got.shape)} and "
+                         f"{want.dtype} {tuple(want.shape)}")
+    same = (got.view(torch.int16) == want.view(torch.int16)).double().mean()
+    g, w = got.double(), want.double()
+    mag = torch.maximum(g.abs(), w.abs())
+    diff = (g - w).abs()
+    scale = w.abs().flatten(1).amax(1) if w.dim() > 1 else w.abs().max()
+    scale = scale.reshape((-1,) + (1,) * (w.dim() - 1))
+
+    def ulps(m):
+        # the bf16 ulp at magnitude m: 2^(exponent - 7); tiny for zeros
+        ulp = torch.exp2(torch.floor(torch.log2(m.clamp_min(1e-38))) - 7)
+        return float((diff / ulp).max()) if diff.numel() else 0.0
+
+    return (float(same), ulps(mag),
+            ulps(torch.maximum(mag, BF16_ULP_FLOOR * scale)))

@@ -46,8 +46,9 @@ The state on a mesh is a MeshState: f a list of the shards' blocks, force
 a list of the x-columns' band forces [2, band, xl]; place_state and
 gather_state convert a global FlowState (checkpoints, snapshots).  Not
 ported here: the jnp ShardedMucociliarySim, the quirk IB on a mesh, bf16
-storage on the card, orbax checkpoints and --distributed (ROADMAP Queue 1
-item 12).
+storage on a mesh of cards (B0 has no bf16 build, and B7 and B8 have not
+been held to JAX's bf16 mesh), orbax checkpoints and --distributed
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -63,8 +64,7 @@ from cuda_iblb_11_tpu_torch.core.state import (
 )
 from cuda_iblb_11_tpu_torch.models.cilia import CiliaModel
 from cuda_iblb_11_tpu_torch.models.mucociliary import (
-    _BF16_ITEM, _FLUX_DIVISOR, _QUIRK_ITEM, MucociliarySim,
-    prep_band_super_points,
+    _FLUX_DIVISOR, _QUIRK_ITEM, MucociliarySim, prep_band_super_points,
 )
 from cuda_iblb_11_tpu_torch.ops import ib_band
 from cuda_iblb_11_tpu_torch.ops.precision import full_f32
@@ -88,6 +88,9 @@ from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
     ghost_temporal, ghost_temporal_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.temporal import GHOST_PAD, plan_sharded
+
+# Kept in the error so a user can find what is still to port.
+_BF16_ITEM = "ROADMAP Queue 1 item 12 (bf16 storage on a mesh)"
 
 
 def visible_devices(device_type: str = "cuda") -> list[torch.device]:
@@ -195,7 +198,7 @@ class ShardedPallasSim:
             raise ValueError("backend 'cuda' needs a mesh of CUDA devices")
         if on_cuda and self.dtype == torch.bfloat16:
             raise NotImplementedError(
-                f"bf16 state on a CUDA device: {_BF16_ITEM}")
+                f"bf16 state on a mesh of CUDA devices: {_BF16_ITEM}")
         self.backend = backend
         self.temporal = 1
         self.temporal_requested = 1

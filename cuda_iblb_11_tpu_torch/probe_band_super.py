@@ -59,7 +59,8 @@ TEST_TILED = dict(c_num=12, c_space=128, ydim=192)
 def other_library(root: str) -> _kernels.KernelLibrary:
     """The kernel library built from the csrc/ of the checkout at root,
     into build/kernels/probe_band_super/ (all compiles started
-    together)."""
+    together), its float32 and float64 entries bound (a checkout from
+    before bf16 storage has no others)."""
     src = os.path.join(os.path.abspath(root), "cuda_iblb_11_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
@@ -76,7 +77,7 @@ def other_library(root: str) -> _kernels.KernelLibrary:
     lib = os.path.join(out, "libiblb_kernels_other.so")
     log += _kernels._run([[nvcc] + _kernels.ARCH + ["-shared", "-o", lib]
                           + objs])
-    return _kernels.KernelLibrary(lib, 0.0, log)
+    return _kernels.KernelLibrary(lib, 0.0, log, bf16=False)
 
 
 def kernel_resources(log: str, source="band_super.cu") -> dict:

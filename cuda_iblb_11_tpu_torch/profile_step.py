@@ -1,12 +1,15 @@
 """Where the time of one step goes: host wall time against device time.
 
     python -m cuda_iblb_11_tpu_torch.profile_step [--grids 288x192,2048x2048]
-        [--steps 64] [--temporal K|auto] [--mesh Y,X] [--out PATH]
+        [--steps 64] [--temporal K|auto] [--mesh Y,X]
+        [--dtype float32|float64|bfloat16] [--ib-x-edge periodic|reference]
+        [--out PATH]
 
 (grids: 288x192, 2048x2048, and 8192x8192 with 64 cilia).
 
-For each grid it builds ``MucociliarySim`` on the card (f32, the hand
-kernels, temporal K as asked: 1 by default, the single-step path), or with
+For each grid it builds ``MucociliarySim`` on the card (f32 unless
+--dtype says, the hand kernels, temporal K as asked: 1 by default, the
+single-step path; --ib-x-edge reference for the quirk mode), or with
 --mesh the sharded sim the runner resolves for that mesh over the visible
 cards (shards share a card when there are fewer), warms
 it up with the same steps, then times ``steps`` steps from the initial
@@ -133,6 +136,14 @@ def main(argv=None) -> int:
                     help="K, or 'auto' (the CLI's default)")
     ap.add_argument("--mesh", default=None, metavar="Y,X",
                     help="profile the sharded path on a Y,X mesh")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64", "bfloat16"],
+                    help="state precision (bfloat16: bf16 storage, f32 "
+                         "arithmetic; one device only)")
+    ap.add_argument("--ib-x-edge", default="periodic",
+                    choices=["periodic", "reference"],
+                    help="'reference' profiles the quirk mode (one device "
+                         "only)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
@@ -143,21 +154,22 @@ def main(argv=None) -> int:
     print(f"card: {record['card']}", flush=True)
     for name in args.grids.split(","):
         c, s, y = GRIDS[name]
-        cfg = SimConfig(c_num=c, c_space=s, ydim=y, dtype="float32")
+        cfg = SimConfig(c_num=c, c_space=s, ydim=y, dtype=args.dtype)
         if args.mesh:
             sim = _make_mesh_sim(cfg, "cuda", "trt_split", temporal,
-                                 args.mesh, "periodic", "no_mucus",
+                                 args.mesh, args.ib_x_edge, "no_mucus",
                                  torch.device("cuda"))
         else:
             sim = MucociliarySim(cfg, backend="cuda", device="cuda",
-                                 temporal=temporal)
+                                 temporal=temporal, ib_x_edge=args.ib_x_edge)
         rc = sim.resolved_config()
         row = dict(grid=name, mesh=rc["mesh"], temporal=rc["temporal"],
-                   band_leg=rc["band_leg"], **profile_sim(sim, args.steps))
+                   band_leg=rc["band_leg"], dtype=rc["dtype"],
+                   ib_path=rc["ib_path"], **profile_sim(sim, args.steps))
         record["rows"].append(row)
         busy = row["device_busy_ms"]
-        print(f"{name} mesh={row['mesh']} K={row['temporal']} "
-              f"{row['band_leg']}: wall "
+        print(f"{name} {row['dtype']} {row['ib_path']} mesh={row['mesh']} "
+              f"K={row['temporal']} {row['band_leg']}: wall "
               f"{row['wall_ms']:.4f} ms/step, device busy "
               f"{'not measured' if busy is None else f'{busy:.4f} ms'}, "
               f"{row['device_kernels']:.1f} kernels, "

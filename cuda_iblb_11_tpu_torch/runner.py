@@ -7,8 +7,9 @@ whose checkpoints are the global state in the same npz format.
 
 The output files come from the port's copy of the JAX package's writers
 (io/writers.py, io/native.py), so both packages write the same bytes for
-the same values.  Orbax checkpoints and --profile-dir are not ported yet
-and raise.
+the same values.  ``profile_dir`` traces the first interval with
+torch.profiler (a Chrome trace, PROFILE_TRACE, in that directory).  Orbax
+checkpoints are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -215,6 +216,37 @@ def _resume_flux_rows(flux_path: str, cfg: SimConfig, it0: int,
     return keep
 
 
+PROFILE_TRACE = "trace.json"   # the --profile-dir trace's file name
+
+
+class _FirstIntervalTrace:
+    """torch.profiler over the run's first interval, as the JAX runner
+    traces it (runner.py:423-426, 598-605): CPU activity, and the card's
+    where the run is on one; ``stop`` writes a Chrome trace into
+    ``profile_dir`` and says so unless quiet."""
+
+    def __init__(self, profile_dir: str, device: torch.device, quiet: bool):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        self.profile_dir, self.quiet = profile_dir, quiet
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        self.prof.stop()
+        self.prof.export_chrome_trace(os.path.join(self.profile_dir,
+                                                   PROFILE_TRACE))
+        self.prof = None
+        if not self.quiet:
+            print(f"Profiler trace written to {self.profile_dir}")
+
+
 def _sync(sim) -> None:
     devices = sim.mesh.devices if hasattr(sim, "mesh") else [sim.device]
     for device in set(devices):
@@ -301,8 +333,6 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     if checkpoint_format != "npz":
         raise _not_ported(f"{checkpoint_format} checkpoints",
                           "ROADMAP Queue 1 item 12")
-    if profile_dir:
-        raise _not_ported("--profile-dir", "ROADMAP Queue 1 item 2")
     cfg.validate()
     mesh_reason = None
     if mesh == "auto":
@@ -396,11 +426,16 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     it_start = state.it
     snap = _SnapshotPipeline(paths, cfg, fmt=snapshot_format,
                              overlap=overlap)
+    trace = (_FirstIntervalTrace(profile_dir, device, quiet) if profile_dir
+             else None)
     try:
         state = _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
-                      checkpoint_every, paths, start_epoch, t_start, state)
+                      checkpoint_every, paths, start_epoch, t_start, state,
+                      trace)
     finally:
         snap.close()
+        if trace is not None:   # a run shorter than one interval
+            trace.stop()
     it = state.it
 
     # final flux row after the loop (main.cu:1030-1034)
@@ -430,8 +465,10 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
 
 
 def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
-          checkpoint_every, paths, start_epoch, t_start, state):
-    """The interval loop (JAX runner.py:569-630); returns the final state."""
+          checkpoint_every, paths, start_epoch, t_start, state, trace=None):
+    """The interval loop (JAX runner.py:569-630); returns the final state.
+    ``trace`` (a _FirstIntervalTrace or None) stops after the first
+    interval."""
     it = state.it
     first_interval_logged = it > 0
     last_ckpt = it
@@ -456,6 +493,9 @@ def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
         _sync(sim)
         meter.stop(n)
         it = state.it
+
+        if trace is not None and it >= interval:
+            trace.stop()
 
         if not first_interval_logged and it >= interval:
             pred = predict_completion(

@@ -100,7 +100,7 @@ def test_cli_temporal_k_matches_single_step(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--mesh", "2,1", "--ib-x-edge", "reference"],   # the quirk on a mesh
     ["--checkpoint-format", "orbax"],
-    ["--profile-dir", "trace"],
+    ["--resume", "."],                               # an orbax directory
 ])
 def test_cli_unported_modes_refuse(tmp_path, flag, capsys):
     rc = main(ARGS + ["--output", str(tmp_path), "--quiet", "--device",
@@ -208,3 +208,21 @@ def test_cli_mesh_auto_is_unsharded_on_one_device(tmp_path):
     log = (tmp_path / SIMLOG).read_text()
     assert "Mesh: unsharded (auto: single visible device" in log
     assert "Kernel path: single_step" in log
+
+
+def test_cli_profile_dir_traces_the_first_interval(tmp_path, capsys):
+    # --profile-dir: a torch.profiler Chrome trace of the first interval in
+    # the directory, the JAX runner's message, and the same flux as a run
+    # without it
+    base = ARGS + ["--quiet", "--device", "cpu", "--dtype", "float32",
+                   "--temporal", "1"]
+    trace = tmp_path / "trace"
+    assert main(base + ["--output", str(tmp_path / "a")]) == 0
+    assert main([a for a in base if a != "--quiet"]
+                + ["--output", str(tmp_path / "b"), "--profile-dir",
+                   str(trace)]) == 0
+    assert f"Profiler trace written to {trace}" in capsys.readouterr().out
+    with open(trace / "trace.json") as fh:
+        assert "traceEvents" in fh.read(4096)
+    assert ((tmp_path / "a" / FLUX).read_bytes()
+            == (tmp_path / "b" / FLUX).read_bytes())

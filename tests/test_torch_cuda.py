@@ -67,6 +67,7 @@ from cuda_iblb_11_tpu_torch.ops.fused_step import (
 from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
     ghost_temporal, ghost_temporal_reference, kstep_geometry,
 )
+from cuda_iblb_11_tpu_torch.ops.precision import bf16_agreement
 from cuda_iblb_11_tpu_torch.ops.temporal import (
     band_super_resident, plan_temporal, xshard_layout,
 )
@@ -152,8 +153,12 @@ def test_wrapper_counts_launches_and_guards_buffers(card):
     with pytest.raises(ValueError, match="contiguous"):
         fused_substep(f.transpose(1, 2).contiguous().transpose(1, 2), force,
                       cfg, storage="raw")
+    # raw bf16 refuses as JAX does; a dtype without a kernel raises and
+    # never reaches another dtype's entry
+    with pytest.raises(ValueError, match="requires deviatoric mode"):
+        fused_substep(f.to(torch.bfloat16), force, cfg, storage="raw")
     with pytest.raises(NotImplementedError):
-        fused_substep(f.to(torch.bfloat16), force, cfg,
+        fused_substep(f.to(torch.float16), force.to(torch.float16), cfg,
                       storage="deviatoric")
     with pytest.raises(NotImplementedError):
         fused_substep(f, force, cfg, ref.WallSpec(top="moving"))
@@ -1441,3 +1446,223 @@ def test_validate_flux_f64_early_curve_against_the_golden(card):
     rows = leg["early"]["rows"]
     assert [r["it"] for r in rows] == list(range(100, 2001, 100))
     assert leg["early"]["max_rel"] <= 1e-9
+
+
+# --- bf16 storage: the _bf16 entries ----------------------------------------
+
+def bf16_inputs(cfg, device, seed=0):
+    """Deviatoric f rounded to bf16 and an f32 band force (the model's
+    dtypes under bf16 storage)."""
+    f, force = random_inputs(cfg, "deviatoric", torch.float32, device, seed)
+    return f.to(torch.bfloat16), force
+
+
+def _check_bf16(got, want, gates):
+    """f outputs (bf16): at least 99.9% bit-equal (ops/precision.
+    bf16_agreement); f32 outputs at their rel-L2 gates."""
+    for (name, gate), g, w in zip(gates, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        if g.dtype == torch.bfloat16:
+            share, _, _ = bf16_agreement(g, w)
+            assert share >= 0.999, (name, share)
+        else:
+            assert g.dtype == torch.float32, name
+            assert rel_l2(g, w) <= gate, (name, rel_l2(g, w))
+
+
+def _nan_like(t):
+    return torch.full_like(t, float("nan"))
+
+
+def _bf16_case(kernel, card, widen=False):
+    """(wrapper, kernel call, plain call, gates, launches per call) of one
+    bf16 kernel at a small size of its path, outputs into NaN buffers;
+    widen=True: the same call with f widened to f32 (the f32 entry on the
+    bf16 case's values)."""
+    g, gi = 1e-6, 1e-5
+
+    def inputs(cfg, seed=0):
+        f, force = bf16_inputs(cfg, card, seed)
+        return (f.float() if widen else f), force
+
+    if kernel in ("B2", "B2h"):
+        cfg = SimConfig(dtype="bfloat16", **GRIDS["channel_288x192"])
+        f, force = inputs(cfg)
+        walls = ref.WallSpec(top="slip")
+        out = _nan_like(f)
+        if kernel == "B2":
+            args = (f, force, cfg, walls, "trt_split", "deviatoric")
+            return (fused_substep, lambda: fused_substep(*args, out=out),
+                    lambda: fused_substep_reference(*args),
+                    [("f", g), ("q", g), ("fluxcol", g)], 1)
+        args = (f, force, cfg.tau, cfg.tau2, walls, "trt_split",
+                "deviatoric")
+        return (collide_stream, lambda: (collide_stream(*args, out=out),),
+                lambda: (collide_stream_reference(*args),), [("f", g)], 1)
+    if kernel == "B3":
+        cfg = SimConfig(dtype="bfloat16", **SMALL)
+        band = cfg.force_band
+        f, force = inputs(cfg, seed=1)
+        f = f[:, :band + 16].contiguous()
+        thalo = f[:, -1].float().contiguous()
+        args = ((0, 1, 0), f, force, None, thalo, cfg, ref.REFERENCE_WALLS,
+                "trt_split", "deviatoric", band - 1, True)
+        out, f1out = _nan_like(f), torch.full((9, cfg.xdim), float("nan"),
+                                              device=card)
+        return (sharded_fused_substep,
+                lambda: sharded_fused_substep(*args, out=out, f1out=f1out),
+                lambda: sharded_fused_substep_reference(*args),
+                [("f", g), ("f1row", g), ("q", g), ("fluxcol", g)], 1)
+    if kernel.startswith("B4"):
+        K = int(kernel.split("K")[1])
+        cfg = SimConfig(dtype="bfloat16", **SMALL)
+        band = cfg.force_band
+        f, _ = inputs(cfg, seed=3)
+        f_bulk = f[:, band:]
+        bhalos = f[None, :, band - 1].float().repeat(K, 1, 1).contiguous()
+        out = _nan_like(f)[:, band:]
+        args = (f_bulk, bhalos, cfg, ref.REFERENCE_WALLS, "trt_split",
+                "deviatoric")
+        return (temporal_bulk, lambda: temporal_bulk(*args, out=out),
+                lambda: temporal_bulk_reference(*args),
+                [("f", g), ("flux", g)], 1)
+    K = 4
+    grid = SUPER if kernel == "B5" else TILED
+    cfg = SimConfig(dtype="bfloat16", **grid)
+    f_ext, force, xs, halo = super_inputs(cfg, K, torch.float32,
+                                          "deviatoric", card)
+    f_ext = f_ext.to(torch.bfloat16)
+    if widen:
+        f_ext = f_ext.float()
+    gates = [("f_band", g), ("bhalos", g), ("force", gi), ("flux", gi)]
+    out = torch.full((9, cfg.force_band, cfg.xdim), float("nan"),
+                     dtype=f_ext.dtype, device=card)
+    if kernel == "B5":
+        args = (f_ext, force, *xs, cfg, halo, ref.REFERENCE_WALLS,
+                "trt_split", "deviatoric")
+        return (band_super, lambda: band_super(*args, out=out),
+                lambda: band_super_reference(*args), gates, 1)
+    plan = xtiled_plan(cfg, K, torch.bfloat16)
+    args = (f_ext, force, *xs, cfg, halo, plan.tile_x, plan.gx,
+            ref.REFERENCE_WALLS, "trt_split", "deviatoric")
+    return (band_super_tiled, lambda: band_super_tiled(*args, out=out),
+            lambda: band_super_tiled_reference(*args), gates,
+            cfg.xdim // plan.tile_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B2", "B2h", "B3", "B4K5", "B4K16",
+                                    "B5", "B6"])
+def test_bf16_kernel_matches_plain_version(card, kernel):
+    # each _bf16 entry against its plain version (which computes in f32
+    # and rounds f to bf16 once, where the kernel does), and bit for bit
+    # the f32 entry on the widened inputs with f rounded to nearest even:
+    # the same f32 arithmetic, rounded where the TPU kernel rounds (B4 at
+    # K = 5 is one pass, bf16 in and out; at K = 16 two, with f32 scratch
+    # between them)
+    wrapper, kern, plain, gates, n = _bf16_case(kernel, card)
+    before = wrapper.launches
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + n
+    _check_bf16(got, want, gates)
+    twin = _bf16_case(kernel, card, widen=True)[1]()
+    for name, a, b in zip(gates, got, twin):
+        assert b.dtype == torch.float32, name
+        assert torch.equal(a, b.to(a.dtype)), name
+
+
+@pytest.mark.cuda
+def test_bf16_b6_is_b5_and_b4_is_b3_composed(card):
+    # the bit-for-bit identities of f32 hold in bf16: B6 equals B5 on the
+    # same inputs; B4 (f rounded once a call) equals 16 B3 launches whose
+    # f stays f32 between them, rounded at the end
+    cfg = SimConfig(dtype="bfloat16", **TILED)
+    plan = xtiled_plan(cfg, 4, torch.bfloat16)
+    f_ext, force, xs, halo = super_inputs(cfg, 4, torch.float32,
+                                          "deviatoric", card)
+    f_ext = f_ext.to(torch.bfloat16)
+    a = band_super_tiled(f_ext, force, *xs, cfg, halo, plan.tile_x, plan.gx,
+                         storage="deviatoric")
+    b = band_super(f_ext, force, *xs, cfg, halo, storage="deviatoric")
+    for name, x, y in zip(("f_band", "bhalos", "force", "flux"), a, b):
+        assert torch.equal(x, y), name
+    cfg = SimConfig(dtype="bfloat16", **SMALL)
+    band = cfg.force_band
+    f, _ = bf16_inputs(cfg, card, seed=3)
+    bhalos = f[None, :, band - 1].float().repeat(16, 1, 1).contiguous()
+    got = temporal_bulk(f[:, band:], bhalos, cfg, storage="deviatoric")[0]
+    cur = f[:, band:].float()
+    for s in range(16):
+        cur = sharded_fused_substep((band, 0, 1), cur, None, bhalos[s], None,
+                                    cfg, storage="deviatoric")[0]
+    assert torch.equal(got, cur.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,temporal,ib_x_edge,leg", [
+    (dict(c_num=6, c_space=48), 1, "periodic", "single_step"),
+    (dict(c_num=6, c_space=48), 16, "periodic", "per_substep"),
+    (SUPER, 8, "periodic", "band_super_whole"),
+    (dict(c_num=6, c_space=48), 1, "reference", "single_step"),
+    (dict(c_num=6, c_space=48), 16, "reference", "per_substep"),
+])
+def test_bf16_sim_cuda_matches_torch_backend(card, kw, temporal, ib_x_edge,
+                                             leg):
+    # the whole model in bf16 through the _bf16 entries: from a state the
+    # torch backend reached in 2 K + 3 steps, one call of the leg (K steps,
+    # or one step; the per-sub-step leg at the K = 16 of auto's plan) on
+    # the cuda backend, on the torch backend, and on the torch backend in
+    # f32 (the state widened).  The two bf16 backends round at the same
+    # points, so they lie less than half as far apart as bf16 lies from
+    # f32 (on the CPU, port against JAX's Pallas after one call: 0.002 of
+    # it single-step, 0.04 on the band super-step, 0.28 over the 16
+    # sub-steps of the per-sub-step leg)
+    wrappers = (fused_substep, collide_stream, sharded_fused_substep,
+                temporal_bulk, band_super)
+    sims = {(b, dt): MucociliarySim(SimConfig(dtype=dt, **kw), backend=b,
+                                    device=card, temporal=temporal,
+                                    ib_x_edge=ib_x_edge)
+            for b, dt in (("cuda", "bfloat16"), ("torch", "bfloat16"),
+                          ("torch", "float32"))}
+    assert sims["cuda", "bfloat16"].resolved_config()["band_leg"] == leg
+    torch16 = sims["torch", "bfloat16"]
+    st = torch16.run_chunk(torch16.init_state(), 2 * temporal + 3)
+    n0 = [w.launches for w in wrappers]
+    out = {key: sim.run_chunk(st._replace(f=st.f.float()) if key[1] ==
+                              "float32" else st, temporal)
+           for key, sim in sims.items()}
+    torch.cuda.synchronize()
+    launched = [w.launches - a for w, a in zip(wrappers, n0)]
+    want = {"single_step": [int(ib_x_edge == "periodic"),
+                            int(ib_x_edge == "reference"), 0, 0, 0],
+            "per_substep": [0, 0, temporal, 1, 0],
+            "band_super_whole": [0, 0, 0, 1, 1]}[leg]
+    assert launched == want, launched
+    fc, ft, f32 = (out[k].f for k in sims)
+    uc, ut, u32 = (sims[k].fields(out[k])[1] for k in sims)
+    assert fc.dtype == ft.dtype == torch.bfloat16
+    assert torch.isfinite(uc).all()
+    assert rel_l2(fc, ft) < 0.5 * rel_l2(ft, f32)
+    assert rel_l2(uc, ut) < 0.5 * rel_l2(ut, u32)
+
+
+@pytest.mark.cuda
+def test_bf16_refusals(card):
+    # raw bf16 refuses as JAX does; bf16 on a mesh names ROADMAP Queue 1
+    # item 12; B0 has no bf16 entry and launches nothing
+    with pytest.raises(ValueError, match="requires deviatoric mode"):
+        MucociliarySim(SimConfig(dtype="bfloat16", storage="raw", c_num=6,
+                                 c_space=48), device=card)
+    cfg = SimConfig(dtype="bfloat16", c_num=3, c_space=128, ydim=256)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ShardedPallasSim(cfg, make_mesh(2, 1, devices=[card]))
+    f, force = bf16_inputs(cfg, card)
+    n = collide_slabs.launches
+    with pytest.raises(NotImplementedError, match="item 12"):
+        collide_slabs([(f[:, :4].contiguous(),
+                        force[:, :4].to(torch.bfloat16).contiguous())],
+                      cfg, storage="deviatoric")
+    assert collide_slabs.launches == n

@@ -112,3 +112,28 @@ def test_one_reader_of_the_card_line(monkeypatch):
     assert probes.card_line() == "NVIDIA H100 80GB HBM3, 700.00 W"
     assert calls == [["nvidia-smi", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"]]
+
+
+def test_entry_names_refuse_a_dtype_without_a_build(monkeypatch):
+    # every entry has _f32 and _f64 builds; the single-device path's also
+    # _bf16; any other pairing raises before a library is loaded, so no
+    # dtype ever reaches another dtype's kernel (the f64 entry took every
+    # dtype but f32 before bf16 had builds of its own)
+    import torch
+
+    assert _kernels.entry_name("iblb_fused_step", torch.bfloat16) == \
+        "iblb_fused_step_bf16"
+    assert _kernels.entry_name("iblb_band_super", torch.float64) == \
+        "iblb_band_super_f64"
+    assert set(_kernels.BF16_ENTRIES) < set(_kernels.SIGNATURES)
+    loads = []
+    monkeypatch.setattr(_kernels, "load", lambda *a: loads.append(a))
+    for name, dtype in (("iblb_fused_step", torch.float16),
+                        ("iblb_collide_slabs", torch.bfloat16),
+                        ("iblb_probe_copy", torch.float64),
+                        ("iblb_ghost_temporal", torch.int32)):
+        with pytest.raises(NotImplementedError, match="no .* kernel"):
+            _kernels.launch(name, dtype, torch.device("cpu"))
+    assert loads == []
+    with pytest.raises(NotImplementedError, match="item 12"):
+        _kernels.entry_name("iblb_collide_slabs", torch.bfloat16)

@@ -88,8 +88,14 @@ def test_kstep_geometry_refuses_b7_beyond_its_ghost_pad(K, yl):
 
 
 def test_kstep_geometry_refuses_other_dtypes_and_empty_blocks():
+    # bf16 storage computes in f32: its rings, stage ring and scratch hold
+    # f32, so its geometry is the f32 one; a dtype without a kernel raises
+    assert kstep_geometry(1920, 0, 2048, 16, torch.bfloat16) == \
+        kstep_geometry(1920, 0, 2048, 16, torch.float32)
+    assert kstep_geometry(64, 0, 288, 4, torch.bfloat16).passes[0].threads \
+        <= MAX_THREADS[torch.float32]
     with pytest.raises(NotImplementedError):
-        kstep_geometry(64, 0, 288, 4, torch.bfloat16)
+        kstep_geometry(64, 0, 288, 4, torch.float16)
     with pytest.raises(ValueError):
         kstep_geometry(64, 0, 288, 0, torch.float32)
     with pytest.raises(ValueError):

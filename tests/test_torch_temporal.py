@@ -11,7 +11,8 @@ CPU tensors takes it).  Inputs are made from a numpy seed, in f64.
     1e-6 (the JAX kernel adds its flux partials in float32).
 (c) The eligibility: the K, band leg and ghost pads the port resolves
     equal the JAX package's on the configurations of test_temporal.py,
-    test_band_super.py and test_auto_temporal.py and on the smoke sizes.
+    test_band_super.py and test_auto_temporal.py and on the smoke sizes,
+    in bf16 storage too.
 (d) The whole temporal MucociliarySim (backend "torch", K = 4) against
     JAX (backend "pallas", K = 4) over 16 steps and over 11 (two
     super-steps and three single-step remainders), on both band legs:
@@ -45,6 +46,7 @@ from cuda_iblb_11_tpu_torch.ops.temporal_bulk import temporal_bulk_reference
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
 F64 = dict(dtype="float64", storage="raw")
+BF16 = dict(dtype="bfloat16", storage="deviatoric")
 KERNEL_CFG = dict(c_num=4, c_space=48, ydim=192, **F64)
 
 
@@ -169,6 +171,11 @@ PLAN_CASES = [
     (dict(c_num=6, c_space=48, dtype="float32"), "auto", "no_mucus"),
     (dict(c_num=16, c_space=128, ydim=2048, dtype="float32"), "auto",
      "no_mucus"),
+    # bf16 storage (16-row alignment): the smoke sizes and both legs
+    (dict(c_num=6, c_space=48, **BF16), "auto", "no_mucus"),
+    (dict(c_num=16, c_space=128, ydim=2048, **BF16), "auto", "no_mucus"),
+    (dict(c_num=3, c_space=128, ydim=256, **BF16), 4, "no_mucus"),
+    (dict(c_num=4, c_space=48, ydim=256, **BF16), 4, "no_mucus"),
 ]
 
 
@@ -189,7 +196,8 @@ def _jax_plan(jcfg, K, pattern):
 
 
 def _port_plan(tcfg, K, pattern):
-    dtype = {"float32": torch.float32, "float64": torch.float64}[tcfg.dtype]
+    dtype = {"float32": torch.float32, "float64": torch.float64,
+             "bfloat16": torch.bfloat16}[tcfg.dtype]
     walls = ref.REFERENCE_WALLS
     if K == "auto":
         plan, _ = plan_auto(tcfg, walls, dtype, pattern)

@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "float64", "bfloat16"],
                    help="state precision (float64 runs the kernel in native "
                         "f64; bfloat16 stores f in bf16 and computes in "
-                        "f32, deviatoric storage only, one device only)")
+                        "f32, deviatoric storage only)")
     p.add_argument("--temporal", type=_temporal_arg, default="auto",
                    metavar="K",
                    help="K-step temporal blocking: K > 1 advances the "
@@ -69,8 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["periodic", "reference"],
                    help="IB stencil at the periodic x edges; 'reference' "
                         "is the strict-parity quirk mode (the stencil IB "
-                        "of the reference's unwrapped indexing; one device "
-                        "only)")
+                        "of the reference's unwrapped indexing)")
     p.add_argument("--mesh", default=None, metavar="Y,X",
                    help="shard the grid over a Y,X mesh spread over the "
                         "visible devices of --device (shards share a card "

@@ -27,8 +27,19 @@
 // writes its slab's f1 contiguous [9, n, m], the slabs back to back in one
 // output buffer.  Every cell goes through the same collide_cell as before,
 // so each f1 equals the single-slab kernel's bit for bit.
+//
+// bf16 storage (the _bf16 entry, the JAX package's --dtype bfloat16 on a
+// mesh): f is read as bf16 through the slab's strides and widened exactly
+// (load_f of step.cuh); the force is float and the collide runs in float
+// through the same collide_cell; f1 is written in float.  That is JAX's B0
+// in bf16 (pallas_step.py:760-783: the inputs cast to the compute type,
+// the output in it) and what its mesh collides at the seams
+// (ref.collide_rows(rows_f.astype(aux), ...), sharded.py:578-581,
+// 1007-1011): the f1 a neighbour pulls stays float, and B3 and
+// _patch_x_seams round it where the TPU path rounds it.  So on the same
+// values widened, the bf16 entry's f1 equals the f32 entry's bit for bit.
 
-#include "collide.cuh"
+#include "step.cuh"
 
 namespace {
 
@@ -51,7 +62,8 @@ struct SlabTable {
   int count;
 };
 
-template <typename T>
+// T is the compute type (and f1's and the force's), S f's storage type.
+template <typename T, typename S>
 __global__ void __launch_bounds__(RB)
 collide_slabs_kernel(const __grid_constant__ SlabTable tab,
                      T* __restrict__ f1, Coeffs<T> k) {
@@ -64,13 +76,13 @@ collide_slabs_kernel(const __grid_constant__ SlabTable tab,
   if (cell >= cells) return;
   const int r = (int)(cell / sl.m);
   const int c = (int)(cell - (long long)r * sl.m);
-  const T* f = static_cast<const T*>(sl.f);
+  const S* f = static_cast<const S*>(sl.f);
   const T* force = static_cast<const T*>(sl.g);
   const long long jf = r * sl.fr + c * sl.fc;
   const long long jg = r * sl.gr + c * sl.gc;
   T fi[9];
 #pragma unroll
-  for (int d = 0; d < 9; ++d) fi[d] = f[d * sl.fp + jf];
+  for (int d = 0; d < 9; ++d) fi[d] = load_f(f + d * sl.fp + jf);
   T out[9];
   collide_cell<T, true>(fi, force[jg], force[sl.gp + jg], k, out);
   T* dst = f1 + sl.out;
@@ -78,7 +90,7 @@ collide_slabs_kernel(const __grid_constant__ SlabTable tab,
   for (int d = 0; d < 9; ++d) dst[d * cells + cell] = out[d];
 }
 
-template <typename T>
+template <typename T, typename S>
 int collide_slabs(const long long* table, int count, void* f1, double tau,
                   double tau2, int forcing_trt, int deviatoric,
                   void* stream) {
@@ -107,8 +119,9 @@ int collide_slabs(const long long* table, int count, void* f1, double tau,
   }
   tab.count = count;
   if (blocks == 0) return 0;   // every slab empty: nothing to launch
-  collide_slabs_kernel<T><<<(unsigned)blocks, RB, 0, (cudaStream_t)stream>>>(
-      tab, (T*)f1, make_coeffs<T>(tau, tau2, forcing_trt, deviatoric));
+  collide_slabs_kernel<T, S>
+      <<<(unsigned)blocks, RB, 0, (cudaStream_t)stream>>>(
+          tab, (T*)f1, make_coeffs<T>(tau, tau2, forcing_trt, deviatoric));
   return (int)cudaGetLastError();
 }
 
@@ -118,13 +131,17 @@ int collide_slabs(const long long* table, int count, void* f1, double tau,
 // count x 10 int64, one row per slab: f's address and element strides
 // (plane, row, column), the force's address and strides, n, m.  The slabs'
 // f1 are written contiguous [9, n, m], back to back in slab order, into
-// f1, which must not overlap any input.  At most 32 slabs a call.
-#define IBLB_COLLIDE_SLABS(NAME, T)                                          \
+// f1, which must not overlap any input.  At most 32 slabs a call.  Each
+// entry is built for a compute type T and a storage type S of f: _f32
+// (float, float), _f64 (double, double) and _bf16 (float, __nv_bfloat16),
+// whose f is bf16 and whose force and f1 are float.
+#define IBLB_COLLIDE_SLABS(NAME, T, S)                                       \
   extern "C" int NAME(const long long* table, int count, void* f1,           \
                       double tau, double tau2, int forcing_trt,              \
                       int deviatoric, void* stream) {                        \
-    return collide_slabs<T>(table, count, f1, tau, tau2, forcing_trt,        \
-                            deviatoric, stream);                             \
+    return collide_slabs<T, S>(table, count, f1, tau, tau2, forcing_trt,     \
+                               deviatoric, stream);                          \
   }
-IBLB_COLLIDE_SLABS(iblb_collide_slabs_f32, float)
-IBLB_COLLIDE_SLABS(iblb_collide_slabs_f64, double)
+IBLB_COLLIDE_SLABS(iblb_collide_slabs_f32, float, float)
+IBLB_COLLIDE_SLABS(iblb_collide_slabs_f64, double, double)
+IBLB_COLLIDE_SLABS(iblb_collide_slabs_bf16, float, __nv_bfloat16)

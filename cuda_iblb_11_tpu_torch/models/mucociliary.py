@@ -13,8 +13,8 @@ CUDA device, "torch" on the CPU; the reason is kept in backend_reason).
 
 dtype bfloat16 is the JAX package's fast mode: f is stored in bf16
 (deviatoric storage only), everything else and all arithmetic in f32; on
-the cuda backend the kernels' _bf16 entries run it (one device only: a
-mesh refuses it).
+the cuda backend the kernels' _bf16 entries run it (on a mesh too:
+parallel/sharded.py).
 
 ib_x_edge "reference" is the strict-parity quirk mode (JAX
 mucociliary.py:105-111, 337-346): the step is collide + stream without
@@ -69,9 +69,6 @@ from cuda_iblb_11_tpu_torch.ops.temporal import plan_auto, plan_temporal
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
-
-# Kept in the errors so a user can find what is still to port.
-_QUIRK_ITEM = "ROADMAP Queue 1 item 12 (the quirk IB on a mesh)"
 
 # the reference hardcodes the flux divisor (ImmersedBoundary.cu:261)
 _FLUX_DIVISOR = 192.0

@@ -64,9 +64,10 @@ SIGNATURES_F32 = {
     "iblb_probe_empty": [_I, _P],
 }
 # the entry points with a bf16-storage build (f in bf16, all else float32):
-# the single-device path's B2, B3, B2h, B4 (B7's driver) and B5/B6 (B8's)
+# B2, B3, B2h, B4/B7 (one driver), B5/B6/B8 (one kernel) and B0
 BF16_ENTRIES = ("iblb_fused_step", "iblb_sharded_step", "iblb_collide_stream",
-                "iblb_ghost_temporal", "iblb_band_super")
+                "iblb_ghost_temporal", "iblb_band_super",
+                "iblb_collide_slabs")
 
 
 def _suffixes():
@@ -87,9 +88,7 @@ def entry_name(name: str, dtype) -> str:
     if not built:
         raise NotImplementedError(
             f"{name} has no {dtype} kernel (built: float32, float64"
-            + (", bfloat16" if name in BF16_ENTRIES else "") + ")"
-            + ("; bf16 for B0 and the mesh: ROADMAP Queue 1 item 12"
-               if sfx == "_bf16" else ""))
+            + (", bfloat16" if name in BF16_ENTRIES else "") + ")")
     return name + sfx
 
 

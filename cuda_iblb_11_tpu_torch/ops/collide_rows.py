@@ -19,6 +19,12 @@ column of a shard's state is read in place), and the f1 are views of one
 output buffer.  ``collide_rows`` is a table of one.  For CPU tensors both
 call ``collide_rows_reference``, the plain torch version of
 ops/reference.py, slab by slab.
+
+Under bf16 storage f is bf16 and the force and f1 float32: the collide
+runs in float32 on f widened, as JAX's B0 in bf16 casts its inputs to the
+compute type and writes f1 in it (pallas_step.py:760-783), and as the JAX
+mesh collides its seams (sharded.py:578-581).  The f1 a neighbour pulls
+rounds to bf16 only where B3 or the x-seam patch stores it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import ctypes
 
 import torch
 
+from cuda_iblb_11_tpu_torch.core.state import aux_dtype
 from cuda_iblb_11_tpu_torch.ops import _kernels
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 
@@ -47,7 +54,7 @@ def collide_slabs_reference(slabs, cfg, forcing="trt_split", storage="raw"):
             for f, g in slabs]
 
 
-def _check_slab(i, f, force, dt, dev):
+def _check_slab(i, f, force, dt, cdt, dev):
     if f.device != dev or f.dtype != dt:
         raise ValueError(f"slab {i}: f must be {dt} on {dev}, got "
                          f"{f.dtype} on {f.device}")
@@ -58,14 +65,15 @@ def _check_slab(i, f, force, dt, dev):
     if tuple(force.shape) != (2, n, m):
         raise ValueError(f"slab {i}: force shape {tuple(force.shape)} != "
                          f"(2, {n}, {m})")
-    if force.dtype != dt or force.device != dev:
-        raise ValueError(f"slab {i}: force must be {dt} on {dev}")
+    if force.dtype != cdt or force.device != dev:
+        raise ValueError(f"slab {i}: force must be {cdt} on {dev}")
 
 
 def collide_slabs(slabs, cfg, forcing="trt_split", storage="raw"):
     """Each slab's f1 [9, n, m], contiguous.  CUDA slabs (one device and
     dtype) launch the hand kernel once per MAX_SLABS slabs; CPU slabs take
-    the plain version."""
+    the plain version.  The force and f1 are in the compute type
+    (float32 for bf16 f)."""
     slabs = list(slabs)
     if not slabs:
         return []
@@ -77,10 +85,11 @@ def collide_slabs(slabs, cfg, forcing="trt_split", storage="raw"):
     dt, dev = f0.dtype, f0.device
     _kernels.check_scheme(dt, ref.REFERENCE_WALLS, forcing, storage,
                           "collide_rows")
+    cdt = aux_dtype(dt)
     for i, (f, force) in enumerate(slabs):
-        _check_slab(i, f, force, dt, dev)
+        _check_slab(i, f, force, dt, cdt, dev)
     sizes = [9 * f.shape[1] * f.shape[2] for f, _ in slabs]
-    buf = torch.empty(sum(sizes), dtype=dt, device=dev)
+    buf = torch.empty(sum(sizes), dtype=cdt, device=dev)
     out, off = [], 0
     for (f, _), size in zip(slabs, sizes):
         out.append(buf[off:off + size].view(9, f.shape[1], f.shape[2]))

@@ -353,14 +353,17 @@ class ShardedPlan:
 
 
 def plan_sharded(cfg, K: int, n_y: int, n_x: int, walls, dtype,
-                 pattern: str = "no_mucus",
+                 pattern: str = "no_mucus", ib_x_edge: str = "periodic",
                  budget: int | None = None) -> ShardedPlan:
     """ShardedTemporalSim's legs for K on a (n_y, n_x) mesh, in its order
     (sharded.py:805-910): the ghost kernel's and the pads' predicates, then
     the band leg: on n_x = 1 the whole band super-step, else the x-tiled
     one, held to `budget` as plan_temporal holds them; on n_x > 1 the
     x-sharded one (xshard_layout); else the per-sub-step leg on the
-    shards' own columns.  Raises ValueError where K does not apply."""
+    shards' own columns.  The quirk IB (ib_x_edge "reference") takes the
+    per-sub-step leg on every mesh: the band super-step's windowed IB is
+    periodic only (sharded.py:855-857, 881-882).  Raises ValueError where
+    K does not apply."""
     band = cfg.force_band
     yl, xl = cfg.ydim // n_y, cfg.xdim // n_x
     if n_y * n_x < 2:
@@ -380,8 +383,10 @@ def plan_sharded(cfg, K: int, n_y: int, n_x: int, walls, dtype,
                          f"(one-hop ghost-column exchange), got xl={xl}")
     check_ghost(K, yl)
     base = dict(K=K, pad_s=pad_s, band_gather=yl < band + pad_s, xpad=xpad)
+    if ib_x_edge not in ("periodic", "reference"):
+        raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")
     try:
-        if n_x == 1:
+        if ib_x_edge == "periodic" and n_x == 1:
             _, halo = band_super_geometry(cfg, pad_s, K, walls, pattern)
             if budget is None or band_super_resident(
                     cfg.xdim, band + pad_s, band, 2 * halo, dtype) <= budget:
@@ -391,12 +396,13 @@ def plan_sharded(cfg, K: int, n_y: int, n_x: int, walls, dtype,
                                         budget)
             return ShardedPlan(band_leg="band_super_xtiled", halo=halo,
                                tile_x=tile_x, gx=gx, **base)
-        lay = xshard_layout(cfg, pad_s, K, walls, dtype, xl, n_x, pattern,
-                            budget)
-        return ShardedPlan(
-            band_leg=("band_super_xsharded_phase" if lay.phase_general
-                      else "band_super_xsharded"),
-            halo=lay.halo, xshard=lay, **base)
+        if ib_x_edge == "periodic":
+            lay = xshard_layout(cfg, pad_s, K, walls, dtype, xl, n_x,
+                                pattern, budget)
+            return ShardedPlan(
+                band_leg=("band_super_xsharded_phase" if lay.phase_general
+                          else "band_super_xsharded"),
+                halo=lay.halo, xshard=lay, **base)
     except ValueError:
         pass
     _, pad_b = pick_band_leg_tile(cfg, K, dtype)

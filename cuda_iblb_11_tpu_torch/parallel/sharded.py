@@ -30,25 +30,34 @@ Per step (ShardedPallasSim, _fluid_step), every shard:
      (_patch_x_seams, data movement only);
   3. adds its share of the IB delta integrals (ops/ib_band.
      interpolate_partial); the sum gives the point forces, and each
-     x-column spreads them over its own columns (spread_local);
+     x-column spreads them over its own columns (spread_local); in the
+     quirk mode (ib_x_edge "reference") the same with the stencil forms
+     of ops/ib: _stencil_interp_block and _quirk_spread_block;
   4. adds its share of the flux column.
 
 Per K-step super-step (ShardedTemporalSim), the legs of ops/temporal.
 plan_sharded: the band advances K sub-steps through B5/B6 on n_x = 1
 meshes, B8 per x-column (ops/band_super_xsharded) on x-sharded ones, or K
-B3 calls per x-column with the IB per sub-step (per_substep_tiled); then
+B3 calls per x-column with the IB per sub-step (per_substep_tiled, the
+quirk mode's leg on every mesh); then
 every shard's rows advance K steps in one B7 call (ops/ghost_temporal) on
 its block extended by 16 ghost rows a side (and 128 ghost columns on
 x-sharded meshes), exchanged once per super-step, with the band leg's seam
 rows injected; the band rows are put back from the band leg.
 
+bf16 storage (dtype bfloat16, deviatoric) keeps f in bf16 and everything
+else in float32: the force, lasts, q, the f1 halos from B0 and the band
+leg's seam halos (JAX sharded.py:150-151, 575, 1000, 1215).  f rounds
+where the JAX mesh rounds it: in every B3 call (each step, and each
+sub-step of the per-sub-step leg's band block), once per B7 and B8 call,
+where _patch_x_seams stores a neighbour's f1, and where _run_bulk puts the
+band rows back.
+
 The state on a mesh is a MeshState: f a list of the shards' blocks, force
 a list of the x-columns' band forces [2, band, xl]; place_state and
 gather_state convert a global FlowState (checkpoints, snapshots).  Not
-ported here: the jnp ShardedMucociliarySim, the quirk IB on a mesh, bf16
-storage on a mesh of cards (B0 has no bf16 build, and B7 and B8 have not
-been held to JAX's bf16 mesh), orbax checkpoints and --distributed
-(ROADMAP Queue 1 item 12).
+ported here: the jnp ShardedMucociliarySim, orbax checkpoints and
+--distributed (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -64,9 +73,9 @@ from cuda_iblb_11_tpu_torch.core.state import (
 )
 from cuda_iblb_11_tpu_torch.models.cilia import CiliaModel
 from cuda_iblb_11_tpu_torch.models.mucociliary import (
-    _FLUX_DIVISOR, _QUIRK_ITEM, MucociliarySim, prep_band_super_points,
+    _FLUX_DIVISOR, MucociliarySim, prep_band_super_points,
 )
-from cuda_iblb_11_tpu_torch.ops import ib_band
+from cuda_iblb_11_tpu_torch.ops import ib, ib_band
 from cuda_iblb_11_tpu_torch.ops.precision import full_f32
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
@@ -88,9 +97,6 @@ from cuda_iblb_11_tpu_torch.ops.ghost_temporal import (
     ghost_temporal, ghost_temporal_reference,
 )
 from cuda_iblb_11_tpu_torch.ops.temporal import GHOST_PAD, plan_sharded
-
-# Kept in the error so a user can find what is still to port.
-_BF16_ITEM = "ROADMAP Queue 1 item 12 (bf16 storage on a mesh)"
 
 
 def visible_devices(device_type: str = "cuda") -> list[torch.device]:
@@ -143,6 +149,44 @@ def _copy_to(t, device, dtype):
     return torch.empty(t.shape, dtype=dtype, device=device).copy_(t)
 
 
+@full_f32()
+def _stencil_interp_block(f_block, s, u_s, cfg, y0, rows, x0, xl, storage):
+    """A block's share [Ns, 2] of the quirk's stencil-form IB interpolation
+    (JAX sharded.py:403-433): f_block [9, rows, xl] holds global rows [y0,
+    y0 + rows) and columns [x0, x0 + xl); the stencil (ops/ib._stencil in
+    the quirk's "reference_alias" mode) is evaluated globally and the
+    cells the block does not own weigh zero.  Each cell is owned by one
+    block, so the sum of the shares over the blocks that partition the
+    grid (or a row range holding every stencil cell) is ops/ib.
+    interpolate_from_f up to the order of the sum.  The gather is promoted
+    to >= f32: bf16 storage must not quantise the IB feedback."""
+    cdt = torch.promote_types(f_block.dtype, torch.float32)
+    xw, yc, w, valid = ib._stencil(s, cfg.xdim, cfg.ydim, "reference_alias")
+    own = (valid & (yc >= y0) & (yc < y0 + rows)
+           & (xw >= x0) & (xw < x0 + xl))
+    wm = torch.where(own, w, torch.zeros_like(w)).to(cdt)
+    f_cells = f_block[:, (yc - y0).clamp(0, rows - 1),
+                      (xw - x0).clamp(0, xl - 1)].to(cdt)   # [9, Ns, 9]
+    rho = f_cells.sum(0)
+    if storage == "deviatoric":
+        rho = 1.0 + rho
+    c = torch.tensor(C, dtype=cdt, device=f_block.device)
+    u_c = torch.einsum("inm,ic->cnm", f_cells, c) / rho[None]
+    return ib._finish(wm, rho, u_c, u_s.to(cdt))
+
+
+def _quirk_spread_block(f_s, s, eps, cfg, x0, xl, band):
+    """The strict-parity spread ("reference_drop": the periodic images
+    dropped, ImmersedBoundary.cu:178-231) into an x-column's own force
+    columns [2, band, xl] (JAX sharded.py:436-453).  Not a scatter-add,
+    whose order on CUDA changes from run to run: ops/ib.spread's
+    fixed-order contraction on the stencil factors, DX cut to the columns
+    [x0, x0 + xl), the quirk counterpart of ops/ib_band.spread_local.
+    Each cell is one x-column's, so no sum across shards."""
+    dy, dx = ib.stencil_factors(s, cfg.xdim, band, "reference_drop")
+    return ib_band.spread(f_s, eps, (dy, dx[:, x0:x0 + xl]))
+
+
 class ShardedPallasSim:
     """The mucociliary model on a mesh, one step per halo exchange: B0 for
     the edge lines, B3 for each shard's block, the sharded IB and flux
@@ -163,11 +207,9 @@ class ShardedPallasSim:
                  dtype=None, backend: str = "auto",
                  ib_x_edge: str = "periodic"):
         cfg.validate()
-        if ib_x_edge == "reference":
-            raise NotImplementedError(
-                f"ib_x_edge='reference' on a mesh: {_QUIRK_ITEM}")
-        if ib_x_edge != "periodic":
+        if ib_x_edge not in ("periodic", "reference"):
             raise ValueError(f"unknown ib_x_edge {ib_x_edge!r}")
+        self.ib_x_edge = ib_x_edge
         if walls.left != "periodic":
             raise NotImplementedError(
                 "sharded backend requires periodic x walls")
@@ -196,9 +238,10 @@ class ShardedPallasSim:
             raise ValueError(f"unknown backend {backend!r} (auto|cuda|torch)")
         if backend == "cuda" and not on_cuda:
             raise ValueError("backend 'cuda' needs a mesh of CUDA devices")
-        if on_cuda and self.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"bf16 state on a mesh of CUDA devices: {_BF16_ITEM}")
+        if backend == "cuda" and self.dtype == torch.bfloat16 \
+                and self.storage != "deviatoric":
+            # as MucociliarySim and the JAX pallas mesh refuse it
+            raise ValueError("bf16 storage requires deviatoric mode")
         self.backend = backend
         self.temporal = 1
         self.temporal_requested = 1
@@ -221,7 +264,8 @@ class ShardedPallasSim:
             "temporal_requested": self.temporal_requested,
             "temporal_reason": self.temporal_reason,
             "forcing": self.forcing,
-            "ib_path": "band_matmul",
+            "ib_path": ("stencil_quirk" if self.ib_x_edge == "reference"
+                        else "band_matmul"),
             "mesh": [self.n_y, self.n_x],
         }
 
@@ -371,8 +415,9 @@ class ShardedPallasSim:
 
     # --- one step of every shard
 
-    def _fluid_step(self, f, force, q, u_s, eps, anchored):
-        """Fluid + IB + flux of one step (sharded.py:561-667)."""
+    def _fluid_step(self, f, force, q, u_s, eps, anchored, s_pts):
+        """Fluid + IB + flux of one step (sharded.py:561-667); s_pts, the
+        raw positions, feed the quirk mode's stencil IB."""
         cfg, yl, xl = self.cfg, self.yl, self.xl
         n_y, n_x, band = self.n_y, self.n_x, cfg.force_band
         devs = self.mesh.devices
@@ -423,18 +468,30 @@ class ShardedPallasSim:
             f_new.append(out)
 
         # IB: the shards' shares of the delta integrals (exactly zero
-        # above the band), summed; each x-column spreads its own columns
-        parts = [ib_band.interpolate_partial(
-                     f_new[k], cfg.xdim, band, iy * yl, ix * xl,
-                     min(yl, band), self.storage,
-                     self._on(anchored, devs[k]))
-                 for k, (iy, ix) in enumerate(self.shards) if iy * yl < band]
-        f_s = ib_band.finish_interpolate(self._psum(parts), u_s)
-        force_new = [ib_band.spread_local(
-                         f_s.to(devs[ix]), eps.to(devs[ix]), cfg.xdim, band,
-                         ix * xl, xl, self._on(anchored, devs[ix])
-                     ).to(self.aux_dtype)
-                     for ix in range(n_x)]
+        # above the band), summed; each x-column spreads its own columns.
+        # The quirk: every shard's share of the stencil interpolation
+        # (each stencil cell is one shard's), summed (sharded.py:633-640)
+        if self.ib_x_edge == "reference":
+            f_s = self._psum([_stencil_interp_block(
+                f_new[k], s_pts.to(devs[k]), u_s.to(devs[k]), cfg, iy * yl,
+                yl, ix * xl, xl, self.storage)
+                for k, (iy, ix) in enumerate(self.shards)])
+            force_new = [_quirk_spread_block(
+                f_s.to(devs[ix]), s_pts.to(devs[ix]), eps.to(devs[ix]), cfg,
+                ix * xl, xl, band).to(self.aux_dtype) for ix in range(n_x)]
+        else:
+            parts = [ib_band.interpolate_partial(
+                         f_new[k], cfg.xdim, band, iy * yl, ix * xl,
+                         min(yl, band), self.storage,
+                         self._on(anchored, devs[k]))
+                     for k, (iy, ix) in enumerate(self.shards)
+                     if iy * yl < band]
+            f_s = ib_band.finish_interpolate(self._psum(parts), u_s)
+            force_new = [ib_band.spread_local(
+                             f_s.to(devs[ix]), eps.to(devs[ix]), cfg.xdim,
+                             band, ix * xl, xl, self._on(anchored, devs[ix])
+                         ).to(self.aux_dtype)
+                         for ix in range(n_x)]
 
         # flux: the shards of the x-column that owns the flux column
         ixo, lane = divmod(cfg.flux_x, xl)
@@ -444,16 +501,17 @@ class ShardedPallasSim:
                    for iy in range(n_y)]
         return f_new, force_new, q + self._psum(contrib) / _FLUX_DIVISOR
 
-    def _steps(self, f, force, q, u_s, eps, anchor, frac):
+    def _steps(self, f, force, q, u_s, eps, anchor, frac, s_pts):
         for k in range(u_s.shape[0]):
             f, force, q = self._fluid_step(f, force, q, u_s[k], eps[k],
-                                           (anchor[k], frac[k]))
+                                           (anchor[k], frac[k]), s_pts[k])
         return f, force, q
 
     def _run_steps(self, state: MeshState, n: int) -> MeshState:
-        pos, u_s, eps, anchor, frac, _ = self.step_kinematics(state.it, n)
+        pos, u_s, eps, anchor, frac, s_pts = self.step_kinematics(state.it,
+                                                                  n)
         f, force, q = self._steps(list(state.f), list(state.force), state.q,
-                                  u_s, eps, anchor, frac)
+                                  u_s, eps, anchor, frac, s_pts)
         return MeshState(f=f, force=force,
                          lasts=pos[-1].to(self.aux_dtype), q=q,
                          it=state.it + n)
@@ -487,7 +545,7 @@ class ShardedTemporalSim(ShardedPallasSim):
         super().__init__(cfg, mesh, walls, forcing, pattern, dtype, backend,
                          ib_x_edge)
         self.plan = plan_sharded(cfg, int(temporal), self.n_y, self.n_x,
-                                 walls, self.dtype, pattern)
+                                 walls, self.dtype, pattern, ib_x_edge)
         self.temporal = self.temporal_requested = self.plan.K
         self._kernel_path = self.plan.band_leg
 
@@ -622,31 +680,44 @@ class ShardedTemporalSim(ShardedPallasSim):
             bhs.append(bh)
         return new, bhs
 
-    def _super_tiled(self, f, force, q, u_s, eps, anchor, frac):
+    def _super_tiled(self, f, force, q, u_s, eps, anchor, frac, s_pts):
         """The per-sub-step leg (sharded.py:1192-1282): K B3 sub-steps of
         each x-column's band block with the sharded IB after each, then
-        the bulk."""
+        the bulk.  The quirk's stencil IB (sharded.py:1237-1249) takes each
+        x-column's band block, rows [0, band + pad_b) (every stencil cell
+        lies below the ghost rows), summed over the x-columns only: the
+        band leg runs once per x-column, where JAX's y-shards hold the
+        same block and sum over 'x'."""
         cfg, xl, n_x = self.cfg, self.xl, self.n_x
         band, K, devs = cfg.force_band, self.temporal, self.mesh.devices
+        ext = band + self.plan.pad_b
         f_x, bot, top = self._bulk_ghosts(f)
-        blk = [self._band_rows(f, band + self.plan.pad_b, ix)
-               for ix in range(n_x)]
+        blk = [self._band_rows(f, ext, ix) for ix in range(n_x)]
         force = [x.to(self.aux_dtype) for x in force]
         ixo, lane = divmod(cfg.flux_x, xl)
         bhs = [[] for _ in range(n_x)]
         flux_band = []
         for s in range(K):
             blk, bh = self._band_substep_x(blk, force)
-            anchored = (anchor[s], frac[s])
-            parts = [ib_band.interpolate_partial(
-                         blk[ix], cfg.xdim, band, 0, ix * xl, band,
-                         self.storage, self._on(anchored, devs[ix]))
-                     for ix in range(n_x)]
-            f_s = ib_band.finish_interpolate(self._psum(parts), u_s[s])
-            force = [ib_band.spread_local(
-                         f_s.to(devs[ix]), eps[s].to(devs[ix]), cfg.xdim,
-                         band, ix * xl, xl, self._on(anchored, devs[ix])
-                     ).to(self.aux_dtype) for ix in range(n_x)]
+            if self.ib_x_edge == "reference":
+                f_s = self._psum([_stencil_interp_block(
+                    blk[ix], s_pts[s].to(devs[ix]), u_s[s].to(devs[ix]), cfg,
+                    0, ext, ix * xl, xl, self.storage) for ix in range(n_x)])
+                force = [_quirk_spread_block(
+                    f_s.to(devs[ix]), s_pts[s].to(devs[ix]),
+                    eps[s].to(devs[ix]), cfg, ix * xl, xl, band
+                ).to(self.aux_dtype) for ix in range(n_x)]
+            else:
+                anchored = (anchor[s], frac[s])
+                parts = [ib_band.interpolate_partial(
+                             blk[ix], cfg.xdim, band, 0, ix * xl, band,
+                             self.storage, self._on(anchored, devs[ix]))
+                         for ix in range(n_x)]
+                f_s = ib_band.finish_interpolate(self._psum(parts), u_s[s])
+                force = [ib_band.spread_local(
+                             f_s.to(devs[ix]), eps[s].to(devs[ix]), cfg.xdim,
+                             band, ix * xl, xl, self._on(anchored, devs[ix])
+                         ).to(self.aux_dtype) for ix in range(n_x)]
             flux_band.append(self._flux_column(blk[ixo], force[ixo], 0, lane,
                                                band))
             for ix in range(n_x):
@@ -660,7 +731,7 @@ class ShardedTemporalSim(ShardedPallasSim):
         q = q + self._psum([flux] + flux_bulk) / _FLUX_DIVISOR
         return f_new, force, q
 
-    def _steps(self, f, force, q, u_s, eps, anchor, frac):
+    def _steps(self, f, force, q, u_s, eps, anchor, frac, s_pts):
         """Whole super-steps, then the remainder one step at a time
         (sharded.py:1284-1333)."""
         K, p = self.temporal, self.plan
@@ -671,7 +742,7 @@ class ShardedTemporalSim(ShardedPallasSim):
                 sl = slice(i * K, (i + 1) * K)
                 f, force, q = self._super_tiled(f, force, q, u_s[sl],
                                                 eps[sl], anchor[sl],
-                                                frac[sl])
+                                                frac[sl], s_pts[sl])
         elif n_super:
             xs_all = prep_band_super_points(
                 self.cfg, K, p.halo, self.aux_dtype, u_s[:nk], eps[:nk],
@@ -682,5 +753,5 @@ class ShardedTemporalSim(ShardedPallasSim):
                 f, force, q = body(f, force, q, [x[i] for x in xs_all])
         if rem:
             f, force, q = super()._steps(f, force, q, u_s[nk:], eps[nk:],
-                                         anchor[nk:], frac[nk:])
+                                         anchor[nk:], frac[nk:], s_pts[nk:])
         return f, force, q

@@ -139,11 +139,10 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "float64", "bfloat16"],
                     help="state precision (bfloat16: bf16 storage, f32 "
-                         "arithmetic; one device only)")
+                         "arithmetic)")
     ap.add_argument("--ib-x-edge", default="periodic",
                     choices=["periodic", "reference"],
-                    help="'reference' profiles the quirk mode (one device "
-                         "only)")
+                    help="'reference' profiles the quirk mode")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 

@@ -98,7 +98,6 @@ def test_cli_temporal_k_matches_single_step(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "2,1", "--ib-x-edge", "reference"],   # the quirk on a mesh
     ["--checkpoint-format", "orbax"],
     ["--resume", "."],                               # an orbax directory
 ])
@@ -172,6 +171,35 @@ def test_cli_mesh_matches_unsharded(tmp_path):
         log = (out / SIMLOG).read_text()
         assert "Mesh: 2,1 over 1 device(s)" in log
         assert f"Kernel path: {leg}" in log
+
+
+def test_cli_quirk_mesh_matches_unsharded(tmp_path):
+    # --ib-x-edge reference on a (2, 1) mesh (the stencil IB on the
+    # shards): f64, the flux of the unsharded quirk run to 1e-10, one step
+    # per exchange and with K = 4 (the per-sub-step leg, the quirk's on
+    # every mesh); bf16 storage runs there too
+    args = ARGS + ["--quiet", "--device", "cpu", "--dtype", "float64",
+                   "--ib-x-edge", "reference"]
+    assert main(args + ["--output", str(tmp_path / "one")]) == 0
+    a = np.loadtxt(tmp_path / "one" / FLUX)
+    for label, extra, leg in (("m1", [], "sharded_per_step"),
+                              ("m4", ["--temporal", "4"],
+                               "per_substep_tiled")):
+        out = tmp_path / label
+        assert main(args + ["--output", str(out), "--mesh", "2,1"]
+                    + extra) == 0
+        np.testing.assert_allclose(np.loadtxt(out / FLUX), a, rtol=1e-10)
+        log = (out / SIMLOG).read_text()
+        assert "Mesh: 2,1 over 1 device(s)" in log
+        assert "IB path: stencil_quirk" in log
+        assert f"Kernel path: {leg}" in log
+    out = tmp_path / "bf16"
+    assert main(ARGS + ["--quiet", "--device", "cpu", "--dtype", "bfloat16",
+                        "--ib-x-edge", "reference", "--mesh", "2,1",
+                        "--output", str(out)]) == 0
+    log = (out / SIMLOG).read_text()
+    assert "Dtype: bfloat16" in log and "IB path: stencil_quirk" in log
+    assert np.isfinite(np.loadtxt(out / FLUX)).all()
 
 
 def test_cli_mesh_resumes_a_single_device_checkpoint(tmp_path):

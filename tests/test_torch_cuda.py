@@ -1651,18 +1651,145 @@ def test_bf16_sim_cuda_matches_torch_backend(card, kw, temporal, ib_x_edge,
 
 @pytest.mark.cuda
 def test_bf16_refusals(card):
-    # raw bf16 refuses as JAX does; bf16 on a mesh names ROADMAP Queue 1
-    # item 12; B0 has no bf16 entry and launches nothing
+    # raw bf16 refuses as JAX does, on one device and on a mesh; B0's bf16
+    # entry takes an f32 force only and launches nothing otherwise
     with pytest.raises(ValueError, match="requires deviatoric mode"):
         MucociliarySim(SimConfig(dtype="bfloat16", storage="raw", c_num=6,
                                  c_space=48), device=card)
+    with pytest.raises(ValueError, match="requires deviatoric mode"):
+        ShardedPallasSim(SimConfig(dtype="bfloat16", storage="raw",
+                                   c_num=3, c_space=128, ydim=256),
+                         make_mesh(2, 1, devices=[card]))
     cfg = SimConfig(dtype="bfloat16", c_num=3, c_space=128, ydim=256)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ShardedPallasSim(cfg, make_mesh(2, 1, devices=[card]))
     f, force = bf16_inputs(cfg, card)
     n = collide_slabs.launches
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="force must be torch.float32"):
         collide_slabs([(f[:, :4].contiguous(),
                         force[:, :4].to(torch.bfloat16).contiguous())],
                       cfg, storage="deviatoric")
     assert collide_slabs.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, MAX_SLABS + 5])
+def test_bf16_b0_is_the_f32_entry_on_widened_slabs(card, n):
+    # B0's bf16 entry: f read as bf16 in place (rows, columns, blocks, an
+    # empty slab), the force f32, f1 f32: bit for bit the f32 entry on
+    # the same slabs widened, and the plain version's at the f32 gate
+    cfg = SimConfig(dtype="bfloat16", **SMALL)
+    f, force = bf16_inputs(cfg, card, seed=9)
+    fo = torch.zeros((2,) + f.shape[1:], device=card)
+    fo[:, :cfg.force_band] = force
+    slabs = _slab_table(f, fo, n)
+    before = collide_slabs.launches
+    got = collide_slabs(slabs, cfg, "trt_split", "deviatoric")
+    assert collide_slabs.launches == before + -(-n // MAX_SLABS)
+    twin = collide_slabs(_slab_table(f.float(), fo, n), cfg, "trt_split",
+                         "deviatoric")
+    want = collide_slabs_reference(slabs, cfg, "trt_split", "deviatoric")
+    torch.cuda.synchronize()
+    for g, t, w, (a, _) in zip(got, twin, want, slabs):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == a.shape
+        assert torch.equal(g, t)
+        if a.numel():
+            assert rel_l2(g, w) <= GATE[torch.float32]
+
+
+MESH_LEGS = [((2, 1), 1, "sharded_per_step"), ((2, 2), 1, "sharded_per_step"),
+             ((2, 1), 4, "band_super_whole"), ((2, 2), 4, "per_substep_tiled"),
+             ((1, 2), 4, "band_super_xsharded")]
+
+
+def _mesh_sim(cfg, mesh, K, card, backend, ib_x_edge="periodic"):
+    m = make_mesh(*mesh, devices=[card])
+    return (ShardedPallasSim(cfg, m, backend=backend, ib_x_edge=ib_x_edge)
+            if K == 1 else ShardedTemporalSim(cfg, m, temporal=K,
+                                              backend=backend,
+                                              ib_x_edge=ib_x_edge))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,K,leg", MESH_LEGS + [
+    ((2, 1), 1, "quirk sharded_per_step"),
+    ((2, 2), 4, "quirk per_substep_tiled")])
+def test_bf16_sharded_cuda_matches_torch_backend(card, mesh, K, leg):
+    # bf16 storage on a mesh through the _bf16 entries (B0, B3, B5, B7,
+    # B8): from a state the torch backend reached in 2 K + 3 steps, one
+    # call (K steps) on the cuda backend, on the torch backend and on the
+    # torch backend in f32 (the state widened): the two bf16 backends
+    # round at the same points, so they lie less than half as far apart
+    # as bf16 from f32 (on the CPU, the torch backend against JAX's bf16
+    # mesh: 0.001-0.03 of it)
+    ib_x_edge = "reference" if leg.startswith("quirk") else "periodic"
+    kw = (dict(c_num=6, c_space=48) if K == 1 or ib_x_edge == "reference"
+          else dict(c_num=16 if leg == "band_super_xsharded" else 3,
+                    c_space=128))
+    sims = {(b, dt): _mesh_sim(SimConfig(dtype=dt, ydim=256, **kw), mesh, K,
+                               card, b, ib_x_edge)
+            for b, dt in (("cuda", "bfloat16"), ("torch", "bfloat16"),
+                          ("torch", "float32"))}
+    rc = sims["cuda", "bfloat16"].resolved_config()
+    assert rc["band_leg"] == leg.split()[-1] and rc["dtype"] == "bfloat16"
+    torch16 = sims["torch", "bfloat16"]
+    st = torch16.run_chunk(torch16.init_state(), 2 * K + 3)
+    wrappers = (collide_slabs, sharded_fused_substep, ghost_temporal,
+                band_super, band_super_xsharded)
+    n0 = [w.launches for w in wrappers]
+    out = {}
+    for key, sim in sims.items():
+        s0 = st if key[1] == "bfloat16" else st._replace(
+            f=[x.float() for x in st.f])
+        out[key] = sim.run_chunk(s0, K)
+    torch.cuda.synchronize()
+    launched = [w.launches - a for w, a in zip(wrappers, n0)]
+    n_sh, n_x = mesh[0] * mesh[1], mesh[1]
+    want = {"sharded_per_step": [1, n_sh, 0, 0, 0],
+            "per_substep_tiled": [K, K * n_x, n_sh, 0, 0],
+            "band_super_whole": [0, 0, n_sh, 1, 0],
+            "band_super_xsharded": [0, 0, n_sh, 0, n_x]}[leg.split()[-1]]
+    assert launched == want, launched
+    g = {k: sims[k].gather_state(o) for k, o in out.items()}
+    fc, ft, f32 = (g[k].f for k in sims)
+    uc, ut, u32 = (sims[k].fields(out[k])[1] for k in sims)
+    assert fc.dtype == ft.dtype == torch.bfloat16
+    assert all(x.dtype == torch.float32 for x in out["cuda", "bfloat16"].force)
+    assert torch.isfinite(uc).all()
+    assert rel_l2(fc, ft) < 0.5 * rel_l2(ft, f32)
+    assert rel_l2(uc, ut) < 0.5 * rel_l2(ut, u32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,K,leg", [
+    ((2, 1), 1, "sharded_per_step"), ((2, 2), 1, "sharded_per_step"),
+    ((2, 1), 4, "per_substep_tiled"), ((1, 2), 4, "per_substep_tiled")])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_quirk_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
+    # the quirk IB on a mesh (the stencil forms on the shards, the
+    # per-sub-step leg at K > 1), every shard on the card: the kernels
+    # against their plain versions over 2 K + 2 steps, at the gates of
+    # the periodic mesh; a geometry whose cilia cross the x edges
+    cfg = SimConfig(c_num=6, c_space=48, ydim=256, dtype=dtype)
+    wrappers = (collide_slabs, sharded_fused_substep, ghost_temporal)
+    states = {}
+    for backend in ("cuda", "torch"):
+        sim = _mesh_sim(cfg, mesh, K, card, backend, "reference")
+        rc = sim.resolved_config()
+        assert rc["band_leg"] == leg and rc["ib_path"] == "stencil_quirk"
+        n0 = [w.launches for w in wrappers]
+        st = sim.run_chunk(sim.init_state(), 2 * K + 2)
+        launched = [w.launches - a for w, a in zip(wrappers, n0)]
+        if backend == "torch":
+            assert launched == [0, 0, 0]
+        else:
+            n_sh = mesh[0] * mesh[1]
+            b0 = 2 * K + 2 if K == 1 or mesh[1] > 1 else 2
+            b3 = (2 * K + 2) * n_sh if K == 1 else \
+                2 * K * mesh[1] + 2 * n_sh
+            assert launched == [b0, b3, 0 if K == 1 else 2 * n_sh], launched
+        states[backend] = (sim, st)
+    (sc, a), (_, b) = states["cuda"], states["torch"]
+    ua, ub = sc.fields(a)[1], sc.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    gate = 1e-5 if dtype == "float32" else 1e-11
+    assert rel_l2(ua, ub) <= gate
+    assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30

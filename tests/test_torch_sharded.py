@@ -190,8 +190,6 @@ def test_refusals():
         ShardedTemporalSim(cfg, make_mesh(1, 1, devices=["cpu"]), temporal=4)
     with pytest.raises(ValueError, match="divide"):
         ShardedPallasSim(cfg, make_mesh(5, 1, devices=["cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ShardedPallasSim(cfg, cpu, ib_x_edge="reference")
     with pytest.raises(ValueError, match="CUDA"):
         ShardedPallasSim(cfg, cpu, backend="cuda")
     with pytest.raises(ValueError, match="yl >= 16"):

@@ -188,10 +188,31 @@ Phases; any failure exits non-zero before the final line:
      distance); then the quirk CLI in bf16 on (2, 1), whose final Q lies
      nearer the unsharded bf16 quirk run's than phase 6's f32 run's does.
 
+ 13. the mesh across processes (--distributed): the CLI under python -m
+     torch.distributed.run, two ranks sharing the one card (the transport
+     rule gives gloo, staged through host memory), at 2048 x 2048 (16
+     cilia, 256 steps, each run after a 16-step warm-up of its
+     configuration): f32 auto on (2, 2) (B8 + B7) and (2, 1) (B5 + B7),
+     f32 --temporal 1 on (2, 2) (B3 + B0), bf16 auto on (2, 2), and the
+     quirk at 288 x 192 on (2, 1) (192 steps, per_substep_tiled); each
+     run's Flux bytes and final state (an npz checkpoint) bit for bit the
+     one-process --mesh run's, the ranks' launches summing to its
+     launches by kernel (B0: one call per exchange on each rank, as on the
+     one process), each rank's launches and the wall ms/step of both (the
+     runner's compute meter, after the warm-up) printed; a two-rank run
+     with --checkpoint-format orbax at 128 steps, resumed by two ranks to
+     256: bit for bit the uninterrupted run; the
+     same directory resumed in one process on (2, 1) and on one device:
+     velocity rel-L2 and flux rel <= 1e-5 from it (phase 5's gates); then
+     one rank on NCCL, --mesh 2,2: bit for bit the one-process mesh.  A
+     rank that fails, a transport other than the rule's, or a rank off the
+     card fails the phase.
+
 The launch counts of each path are set to 0 just before it and read just
-after.  The kernels line lists each kernel, then each bf16 entry as
-"<kernel> bf16" with its launches on its bf16 path (B2 on the bf16 CLI at
---temporal 1, B3 and B4 on its auto run, B5 on 2048 x 2048 auto, B6 on
+after (under torchrun by each rank, of its own launches).  The kernels
+line lists each kernel, then each bf16 entry as "<kernel> bf16" with
+its launches on its bf16 path (B2 on the bf16 CLI at --temporal 1, B3
+and B4 on its auto run, B5 on 2048 x 2048 auto, B6 on
 the 8192 x 8192 x-tiled leg, B2h on the 2048 x 2048 quirk run, B0 on the
 2048 x 2048 (2, 2) bf16 mesh at temporal 1, B7 and B8 on its auto run).
 The last lines are the kernels JSON line, the card's name and power limit
@@ -2834,6 +2855,357 @@ def phase_mesh_rest(record):
     return timings, path
 
 
+# --- phase 13: the mesh across processes ----------------------------------
+
+# 2048^2 with 16 cilia: 256 steps in intervals of 128; the half run 128
+# steps in one interval; the quirk at the reference channel, 192 steps.
+# Each run follows a 16-step warm-up of its configuration in the same
+# process, so its ms/step holds no first-call costs; the ms/step is the
+# runner's compute meter (the chunks and their sync, not the flux rows and
+# the final checkpoint), as rank 0 prints it
+DIST_ARGV = ["1", "16", "128", "1.0", "1.0", "5", "0.00256", "2", "0", "0",
+             "--ydim", "2048"]
+DIST_HALF = DIST_ARGV[:6] + ["0.00128", "1"] + DIST_ARGV[8:]
+DIST_QUIRK = ["1", "6", "48", "1.0", "1.0", "5", "0.00192", "2", "0", "0"]
+WARM_UP = ["0.00016", "1"]     # I_pow and P_num of a warm-up: 16 steps
+# label: (argv and flags, steps, band leg); each run writes its final
+# state as an npz checkpoint
+DIST_RUNS = {
+    "f32 auto 2,2": (DIST_ARGV + ["--mesh", "2,2"], 256,
+                     "band_super_xsharded"),
+    "f32 auto 2,1": (DIST_ARGV + ["--mesh", "2,1"], 256, "band_super_whole"),
+    "f32 temporal 1 2,2": (DIST_ARGV + ["--mesh", "2,2", "--temporal", "1"],
+                           256, "sharded_per_step"),
+    "bf16 auto 2,2": (DIST_ARGV + ["--mesh", "2,2", "--dtype", "bfloat16"],
+                      256, "band_super_xsharded"),
+    "quirk 288x192 auto 2,1": (DIST_QUIRK + ["--mesh", "2,1", "--ib-x-edge",
+                                             "reference"], 192,
+                               "per_substep_tiled"),
+}
+DIST_STAGED = "gloo (staged through host memory)"
+
+
+def _dist_out(label):
+    return os.path.join(REPO, "build", "chip_smoke", "dist",
+                        label.replace(" ", "_").replace(",", "x"))
+
+
+def _dist_files(out, cfg):
+    """(Flux bytes, the final npz state, SimLog text) of a CLI run."""
+    from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
+    from cuda_iblb_11_tpu_torch.io.writers import OutputPaths
+
+    paths = OutputPaths(out, cfg)
+    with open(paths.flux_path, "rb") as fh:
+        flux = fh.read()
+    st, _ = ckpt.load(os.path.join(paths.raw_dir, "checkpoint.npz"))
+    with open(paths.simlog_path) as fh:
+        log = fh.read()
+    return flux, st, log
+
+
+def _cli_timed(argv):
+    """(rc, the runner's compute MLUPS as it prints them, or None where
+    this rank prints nothing) of one CLI run."""
+    import contextlib
+    import io
+
+    from cuda_iblb_11_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    found = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("Total runtime")]
+    mlups = (float(found[-1].split("(")[1].split(" MLUPS compute")[0])
+             if found else None)
+    return rc, mlups
+
+
+def _ms_per_step(mlups, cfg):
+    return 1e3 * cfg.size / (mlups * 1e6)
+
+
+def _warm_up(argv, out):
+    """The 16-step warm-up of a run's configuration (argv with the
+    warm-up's I_pow and P_num) into `out`."""
+    return argv[:6] + WARM_UP + argv[8:] + ["--output", out]
+
+
+def _same_state(a, b):
+    import torch
+
+    return a.it == b.it and all(
+        getattr(a, k).dtype == getattr(b, k).dtype
+        and torch.equal(getattr(a, k), getattr(b, k))
+        for k in ("f", "force", "lasts", "q"))
+
+
+def rank_runs(spec_path):
+    """One rank of phase 13 (under torchrun): join the process group on
+    the card, then run each CLI command of the spec with --distributed,
+    its launches counted from 0; writes this rank's results beside the
+    spec.  Exits non-zero at the first run that fails."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import cli
+    from cuda_iblb_11_tpu_torch.parallel import dist
+
+    if not torch.cuda.is_available():
+        return 1
+    comm = dist.init_from_env("cuda")
+    with open(spec_path) as fh:
+        runs = json.load(fh)
+    results = []
+    for run in runs:
+        if run.get("warm_up"):
+            check(cli.main(run["warm_up"] + ["--distributed", "--quiet"])
+                  == 0, f"warm-up of {run['label']}")
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, mlups = _cli_timed(run["argv"] + ["--distributed"])
+        torch.cuda.synchronize()
+        results.append(dict(label=run["label"], rc=rc,
+                            wall_s=time.perf_counter() - t0, mlups=mlups,
+                            launches=read_launches(),
+                            transport=comm.name, device=str(comm.device)))
+        if rc != 0:
+            break
+    with open(f"{spec_path}.rank{comm.rank}.json", "w") as fh:
+        json.dump(results, fh)
+    ok = len(results) == len(runs) and all(r["rc"] == 0 for r in results)
+    if ok:
+        dist.shutdown()
+    return 0 if ok else 1
+
+
+def torchrun(ranks, runs, tag, timeout=300):
+    """The CLI runs `runs` [{label, argv}] under ``python -m
+    torch.distributed.run`` with `ranks` ranks on this host; returns each
+    rank's results.  A rank that fails, or the time limit, fails the phase
+    (the launcher's process group is killed whole)."""
+    import signal
+    import socket
+
+    spec = os.path.join(REPO, "build", "chip_smoke", "dist", f"{tag}.json")
+    os.makedirs(os.path.dirname(spec), exist_ok=True)
+    with open(spec, "w") as fh:
+        json.dump(runs, fh)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(ranks), "--master-addr", "127.0.0.1", "--master-port",
+           str(port), os.path.join(REPO, "chip_smoke.py"), "--rank-runs",
+           spec]
+    log_path = spec + ".log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=REPO, start_new_session=True,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as fh:
+            print(fh.read()[-6000:], flush=True)
+    check(rc == 0, f"torchrun {tag} ({ranks} ranks) ended {rc}")
+    out = []
+    for r in range(ranks):
+        with open(f"{spec}.rank{r}.json") as fh:
+            out.append(json.load(fh))
+    print(f"  torchrun {tag}: {ranks} rank(s), {len(runs)} CLI run(s) in "
+          f"{wall:.1f} s", flush=True)
+    return out
+
+
+def phase_distributed(record):
+    """Phase 13: the CLI under torchrun, two ranks sharing the card (gloo,
+    staged through host memory) and one rank on NCCL, against the
+    one-process --mesh runs: Flux bytes and the final state bit for bit;
+    the ranks' launches sum to the one-process run's; the directory
+    checkpoint resumed by two ranks bit for bit, and in one process on
+    (2, 1) and on one device within phase 5's gates.  Returns the
+    two-rank runs' rows."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import MucociliarySim, SimConfig, cli
+    from cuda_iblb_11_tpu_torch.core.state import torch_dtype
+
+    print("== phase 13: the mesh across processes (--distributed)",
+          flush=True)
+    print(f"  {card_line()}", flush=True)
+    t_phase = time.perf_counter()
+    zero = dict.fromkeys(KERNELS, 0)
+
+    def cfg_of(argv):
+        args = cli.build_parser().parse_args(argv)
+        cfg = SimConfig.from_argv(args.positionals)
+        if args.ydim:
+            cfg = cfg.replace(ydim=args.ydim)
+        return cfg.replace(dtype=args.dtype) if args.dtype else cfg
+
+    # the one-process runs
+    single = {}
+    scratch = _dist_out("warm-up")
+    for label, (argv, n, leg) in DIST_RUNS.items():
+        out = _dist_out("one " + label)
+        shutil.rmtree(out, ignore_errors=True)
+        check(cli.main(_warm_up(argv, scratch) + ["--device", DEVICE,
+                                                  "--quiet"]) == 0,
+              f"warm-up of {label}")
+        reset_launches()
+        rc, mlups = _cli_timed(argv + ["--device", DEVICE, "--output", out,
+                                       "--checkpoint-every", str(n)])
+        check(rc == 0, f"one-process {label}: rc {rc}")
+        single[label] = (read_launches(), *_dist_files(out, cfg_of(argv)),
+                         mlups)
+        check(f"Kernel path: {leg}" in single[label][3],
+              f"one-process {label}: not on {leg}")
+
+    # two ranks: every run, then the checkpoint half and its resume
+    ck_out = _dist_out("ckpt two ranks")
+    ck_dir = os.path.join(ck_out, "Raw", "16", "1", "checkpoint_orbax")
+    shutil.rmtree(ck_out, ignore_errors=True)
+    runs = [dict(label=label, warm_up=_warm_up(argv, scratch), argv=argv + [
+        "--output", _dist_out("two " + label), "--checkpoint-every", str(n)])
+        for label, (argv, n, _) in DIST_RUNS.items()]
+    for r in runs:
+        shutil.rmtree(_dist_out("two " + r["label"]), ignore_errors=True)
+    runs += [dict(label="ckpt half", argv=DIST_HALF + [
+                 "--mesh", "2,2", "--output", ck_out, "--checkpoint-every",
+                 "128", "--checkpoint-format", "orbax"]),
+             dict(label="ckpt resume", argv=DIST_ARGV + [
+                 "--mesh", "2,2", "--output", ck_out, "--resume", ck_dir,
+                 "--checkpoint-every", "128"])]
+    ranks = torchrun(2, runs, "two_ranks")
+    rows = []
+    for label, (argv, n, leg) in DIST_RUNS.items():
+        per_rank = [next(x for x in rk if x["label"] == label)
+                    for rk in ranks]
+        cfg = cfg_of(argv)
+        flux, st, log = _dist_files(_dist_out("two " + label), cfg)
+        launches_1, flux_1, st_1, log_1, mlups_1 = single[label]
+        summed = {k: sum(r["launches"][k] for r in per_rank)
+                  for k in KERNELS}
+        row = dict(run=label, steps=n, band_leg=leg,
+                   transport=[r["transport"] for r in per_rank],
+                   flux_bytes_equal=flux == flux_1,
+                   state_bit_equal=_same_state(st, st_1),
+                   launches_by_rank=[{k: v for k, v in r["launches"].items()
+                                      if v} for r in per_rank],
+                   launches_one_process={k: v for k, v in
+                                         launches_1.items() if v},
+                   ms_per_step_two_ranks=_ms_per_step(per_rank[0]["mlups"],
+                                                      cfg),
+                   ms_per_step_one_process=_ms_per_step(mlups_1, cfg))
+        rows.append(row)
+        print(f"  {label}: Flux bytes equal {row['flux_bytes_equal']}, "
+              f"state bit-equal {row['state_bit_equal']}; ms/step two "
+              f"ranks {row['ms_per_step_two_ranks']:.4f}, one process "
+              f"{row['ms_per_step_one_process']:.4f}; launches by rank "
+              f"{row['launches_by_rank']} (one process "
+              f"{row['launches_one_process']})", flush=True)
+        check(all(t == DIST_STAGED for t in row["transport"]),
+              f"{label}: transport {row['transport']}, the rule gives "
+              f"{DIST_STAGED} to two ranks on one card")
+        check(all(r["device"] == "cuda:0" for r in per_rank)
+              and "Device: cuda:0" in log, f"{label}: not on the card")
+        check(f"Distributed: 2 rank(s), transport {DIST_STAGED}" in log
+              and f"Kernel path: {leg}" in log, f"{label}: SimLog")
+        check(row["flux_bytes_equal"] and row["state_bit_equal"],
+              f"{label}: two ranks differ from the one-process mesh")
+        # every kernel's launches split over the ranks, but B0's: one call
+        # per exchange on each rank's device, as on the one process's
+        b0 = "B0 collide_slabs"
+        check({k: v for k, v in summed.items() if k != b0}
+              == {k: v for k, v in launches_1.items() if k != b0}
+              and all(r["launches"][b0] == launches_1[b0]
+                      for r in per_rank)
+              and summed != zero
+              and all(any(r["launches"].values()) for r in per_rank),
+              f"{label}: launches by rank {per_rank} against one process "
+              f"{launches_1}")
+
+    # the checkpoint: resumed by two ranks bit for bit the uninterrupted
+    # two-rank run (which is the one-process run's bits)
+    ref_label = "f32 auto 2,2"
+    cfg = cfg_of(DIST_RUNS[ref_label][0])
+    flux_r, st_r, log_r = _dist_files(ck_out, cfg)
+    flux_u, st_u, _ = _dist_files(_dist_out("two " + ref_label), cfg)
+    ck = dict(flux_bytes_equal=flux_r == flux_u,
+              state_bit_equal=_same_state(st_r, st_u),
+              files=sorted(os.listdir(ck_dir)))
+    print(f"  checkpoint dir {ck['files']}; resumed by two ranks: Flux "
+          f"bytes equal {ck['flux_bytes_equal']}, state bit-equal "
+          f"{ck['state_bit_equal']}", flush=True)
+    check(ck["flux_bytes_equal"] and ck["state_bit_equal"]
+          and "Resumed from checkpoint at iteration 128" in log_r,
+          "two-rank directory checkpoint did not resume bit for bit")
+    check(ck["files"] == [".metadata", "__0_0.distcp", "__1_0.distcp",
+                          "iblb.json"], f"checkpoint files {ck['files']}")
+    # ... and in one process on (2, 1) and on one device, within phase 5's
+    # gates (velocity rel-L2 and flux rel <= 1e-5) of the uninterrupted run
+    sim = MucociliarySim(cfg, backend="cuda", device=DEVICE)
+    u_ref = sim.fields(st_u._replace(f=st_u.f.to(DEVICE),
+                                     force=st_u.force.to(DEVICE)))[1]
+    for label, flags in (("resume one process 2,1", ["--mesh", "2,1"]),
+                         ("resume one device", [])):
+        out = _dist_out(label)
+        shutil.rmtree(out, ignore_errors=True)
+        rc = cli.main(DIST_ARGV + flags + [
+            "--device", DEVICE, "--quiet", "--output", out, "--resume",
+            ck_dir, "--checkpoint-every", "128"])
+        check(rc == 0, f"{label}: rc {rc}")
+        _, st_1, _ = _dist_files(out, cfg)
+        check(st_1.f.dtype == torch_dtype(cfg.dtype), f"{label}: dtype")
+        u = sim.fields(st_1._replace(f=st_1.f.to(DEVICE),
+                                     force=st_1.force.to(DEVICE)))[1]
+        err = rel_l2(u, u_ref)
+        qrel = abs(float(st_1.q) - float(st_u.q)) / abs(float(st_u.q))
+        ck[label] = dict(velocity_rel_l2=err, flux_rel=qrel)
+        print(f"  {label}: velocity rel-L2 {err:.3e}, flux rel {qrel:.3e} "
+              f"from the two-rank run", flush=True)
+        check(err <= 1e-5 and qrel <= 1e-5, f"{label}: {err}, {qrel}")
+
+    # one rank on NCCL: the one-process mesh's bits
+    out = _dist_out("nccl one rank")
+    shutil.rmtree(out, ignore_errors=True)
+    argv, n, leg = DIST_RUNS[ref_label]
+    (res,), = torchrun(1, [dict(label="nccl", warm_up=_warm_up(argv, scratch),
+                                argv=argv + ["--output", out,
+                                             "--checkpoint-every", str(n)])],
+                       "nccl_one_rank")
+    flux, st, log = _dist_files(out, cfg)
+    nccl = dict(transport=res["transport"], launches=res["launches"],
+                flux_bytes_equal=flux == single[ref_label][1],
+                state_bit_equal=_same_state(st, single[ref_label][2]),
+                ms_per_step=_ms_per_step(res["mlups"], cfg),
+                ms_per_step_one_process=_ms_per_step(single[ref_label][4],
+                                                     cfg))
+    print(f"  one rank on {nccl['transport']}: Flux bytes equal "
+          f"{nccl['flux_bytes_equal']}, state bit-equal "
+          f"{nccl['state_bit_equal']}; ms/step {nccl['ms_per_step']:.4f} "
+          f"(one process {nccl['ms_per_step_one_process']:.4f})",
+          flush=True)
+    check(res["transport"] == "nccl"
+          and "Distributed: 1 rank(s), transport nccl" in log,
+          f"one rank: transport {res['transport']}, the rule gives nccl")
+    check(nccl["flux_bytes_equal"] and nccl["state_bit_equal"]
+          and res["launches"] == single[ref_label][0],
+          "one NCCL rank differs from the one-process mesh")
+    record["distributed"] = dict(runs=rows, checkpoint=ck, nccl_one_rank=nccl,
+                                 phase_s=time.perf_counter() - t_phase)
+    print(f"  phase 13: {record['distributed']['phase_s']:.1f} s",
+          flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(
         description="smoke run of the port on one GPU")
@@ -2845,9 +3217,12 @@ def main():
                          "git archive under build/): phase 2 also holds "
                          "every f32 and f64 case bit for bit against the "
                          "build of its csrc/")
+    ap.add_argument("--rank-runs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
+    if args.rank_runs:        # one rank of phase 13, under torchrun
+        return rank_runs(args.rank_runs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2889,6 +3264,7 @@ def main():
     phase_experiments(record)
     bf16_timings, bf16_launches = phase_bf16(record)
     mesh16_timings, mesh16_launches = phase_mesh_rest(record)
+    phase_distributed(record)
     bf16_timings.update(mesh16_timings)
     bf16_launches.update(mesh16_launches)
     # each kernel's launches on the path that runs it: B2 on the

@@ -16,13 +16,18 @@ Layout:
     models/    cilia kinematics (f64) + the mucociliary model (single-step
                and K-step temporal, the quirk mode), the validation
                channel and cavity
+    parallel/  the mesh of shards (sharded.py: in one process, or spread
+               over the ranks of a --distributed run) and the process
+               group with its transport (dist.py)
     io/        output writers (+ native C++ writers), npz checkpoints in
-               the JAX package's format
+               the JAX package's format, sharded directory checkpoints
+               (torch.distributed.checkpoint)
     utils/     timing
     csrc/      CUDA sources
     runner.py  interval-driven run loop
     cli.py     the reference's 10 positional args + framework flags
     probe_bw.py, probe_vpu.py  the card's own copy and f32 ceilings
+    probe_nccl.py  whether NCCL takes two ranks on one card
 """
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig

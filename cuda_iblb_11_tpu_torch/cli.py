@@ -4,9 +4,16 @@ Positional arguments exactly as the reference binary (main.cu:284-296):
 
     c_fraction c_num c_space Re T_num T_pow I_pow P_num ShARC BigData
 
-plus the JAX CLI's flags where this slice supports them, and --device.
+plus the JAX CLI's flags (all but the JAX-only --platform), and --device.
 ``python -m cuda_iblb_11_tpu_torch.cli 1 6 48 1.0 1.0 5 0.02 4 0 0
 --output X`` writes the same files as ``python -m cuda_iblb_11_tpu.cli``.
+
+``--distributed`` joins the process group that torchrun's environment
+describes (parallel/dist.init_from_env) before anything touches the card;
+the --mesh then spans every rank:
+
+    torchrun --nproc-per-node 2 -m cuda_iblb_11_tpu_torch.cli ... \
+        --distributed --mesh 2,1
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import argparse
 import sys
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig
+from cuda_iblb_11_tpu_torch.parallel import dist
 from cuda_iblb_11_tpu_torch.runner import run
 
 
@@ -74,15 +82,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the grid over a Y,X mesh spread over the "
                         "visible devices of --device (shards share a card "
                         "when there are fewer cards than shards); 'auto' "
-                        "picks a factorization of the visible cards "
-                        "(unsharded on one)")
-    p.add_argument("--resume", default=None, help="checkpoint .npz to resume "
-                   "(written by either package)")
+                        "picks a factorization of the visible cards, or "
+                        "under --distributed of the world size (unsharded "
+                        "on one)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint to resume: an .npz (written by either "
+                        "package) or this package's checkpoint directory "
+                        "(--checkpoint-format orbax), told apart by being "
+                        "a directory")
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="write a checkpoint every N iterations")
     p.add_argument("--checkpoint-format", default="npz",
                    choices=["npz", "orbax"],
-                   help="npz (orbax is not yet ported)")
+                   help="npz: the global state in one archive (both "
+                        "packages read it); orbax (JAX's name, kept so a "
+                        "JAX command line runs unchanged): this package's "
+                        "own sharded directory in torch.distributed."
+                        "checkpoint layout, each rank writing its shards "
+                        "and the restore going onto the mesh (JAX cannot "
+                        "read it, nor this package JAX's orbax)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group of torchrun's environment "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT) before the run, one rank per card "
+                        "(ranks share a card when there are fewer); the "
+                        "--mesh then spans every rank's shards, and rank 0 "
+                        "writes the outputs")
     p.add_argument("--ydim", type=int, default=None,
                    help="override the channel height (default 192)")
     p.add_argument("--snapshot-format", default="dat",
@@ -114,6 +139,11 @@ def main(argv=None) -> int:
         cfg = cfg.replace(dtype=args.dtype)
     if args.ydim is not None:
         cfg = cfg.replace(ydim=args.ydim)
+    joined = False
+    if args.distributed and dist.current() is None:
+        # before any card use, as JAX's jax.distributed.initialize()
+        dist.init_from_env(args.device)
+        joined = True
     try:
         run(cfg, output_root=args.output, backend=args.backend,
             forcing=args.forcing, resume_from=args.resume,
@@ -126,6 +156,8 @@ def main(argv=None) -> int:
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    if joined:
+        dist.shutdown()
     return 0
 
 

@@ -1,15 +1,24 @@
 """Run loop — the port of cuda_iblb_11_tpu/runner.py: interval-chunked
 execution, the flux series, optional field + cilia snapshots (overlapped
 with the next chunk), SimLog with the resolved configuration and the
-completion estimate, and npz checkpoint/resume; on one device or, with
-``mesh="Y,X"`` (or "auto"), on a mesh of shards (parallel/sharded.py),
-whose checkpoints are the global state in the same npz format.
+completion estimate, and checkpoint/resume; on one device or, with
+``mesh="Y,X"`` (or "auto"), on a mesh of shards (parallel/sharded.py).
+Checkpoints are the global state in npz (``checkpoint_format="npz"``) or
+the sharded directory (``"orbax"``, JAX's name for its own: io/
+checkpoint.save_dir, at raw_dir/checkpoint_orbax); ``resume_from`` takes
+either, a directory by its being one.
+
+Under a process group (--distributed: parallel/dist.py) every rank runs
+the loop on its own shards, and rank 0 alone writes Flux, SimLog, the
+snapshots, npz checkpoints and the profile trace, and prints; snapshots
+and npz checkpoints gather the state to it, and the directory checkpoint
+is written by every rank.  (JAX's runner has no such guard: every process
+writes the same files.)
 
 The output files come from the port's copy of the JAX package's writers
 (io/writers.py, io/native.py), so both packages write the same bytes for
 the same values.  ``profile_dir`` traces the first interval with
-torch.profiler (a Chrome trace, PROFILE_TRACE, in that directory).  Orbax
-checkpoints are not ported yet and raise.
+torch.profiler (a Chrome trace, PROFILE_TRACE, in that directory).
 """
 
 from __future__ import annotations
@@ -35,15 +44,19 @@ from cuda_iblb_11_tpu_torch.models.mucociliary import (
     MucociliarySim, resolve_device,
 )
 from cuda_iblb_11_tpu_torch.ops.temporal import AUTO_LADDER
+from cuda_iblb_11_tpu_torch.parallel import dist
 from cuda_iblb_11_tpu_torch.parallel.sharded import (
     MeshState, ShardedPallasSim, ShardedTemporalSim, make_mesh,
     visible_devices,
 )
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not yet ported to the torch "
-                               f"package ({item})")
+class _Discard:
+    """Stands in for the output writers on ranks other than 0: every call
+    does nothing (rank 0 writes every output file)."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 class _SnapshotPipeline:
@@ -250,16 +263,18 @@ class _FirstIntervalTrace:
 def _sync(sim) -> None:
     devices = sim.mesh.devices if hasattr(sim, "mesh") else [sim.device]
     for device in set(devices):
-        if device.type == "cuda":
+        if device is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
 
 
-def _resolve_auto_mesh(cfg: SimConfig, device: torch.device):
+def _resolve_auto_mesh(cfg: SimConfig, device: torch.device, comm=None):
     """``--mesh auto`` (JAX runner.py:142-189) over the visible devices of
-    the run's type: the first factorization (n_y, n_x) of their number,
-    balanced shapes first and x-major on ties, that divides the grid.
-    Returns (mesh string or None for unsharded, reason)."""
-    n = len(visible_devices(device.type))
+    the run's type, or under a process group over the world's cards (one
+    a rank): the first factorization (n_y, n_x) of their number, balanced
+    shapes first and x-major on ties, that divides the grid.  Returns
+    (mesh string or None for unsharded, reason)."""
+    n = comm.world if comm is not None else len(
+        visible_devices(device.type))
     if n <= 1:
         return None, "auto: single visible device — unsharded"
     cands = [(y, n // y) for y in range(1, n + 1) if n % y == 0]
@@ -275,9 +290,10 @@ def _resolve_auto_mesh(cfg: SimConfig, device: torch.device):
 
 
 def _make_mesh_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge,
-                   pattern, device):
+                   pattern, device, comm=None):
     """The sharded sim for ``mesh`` "Y,X" over the visible devices of the
-    run's type, as JAX runner.py:209-283 resolves it: temporal "auto"
+    run's type (under a process group, comm: over the ranks), as JAX
+    runner.py:209-283 resolves it: temporal "auto"
     takes the largest K of (16, 8, 4, 2) whose ShardedTemporalSim applies
     on the cuda backend (none on the torch backend, as on one device), else
     ShardedPallasSim with the reason; K > 1 takes ShardedTemporalSim(K),
@@ -285,7 +301,7 @@ def _make_mesh_sim(cfg, backend, forcing, temporal, mesh, ib_x_edge,
     parts = [int(v) for v in str(mesh).split(",")]
     if len(parts) != 2 or min(parts) < 1:
         raise ValueError(f"--mesh must be 'Y,X' positive ints, got {mesh!r}")
-    m = make_mesh(*parts, devices=visible_devices(device.type))
+    m = make_mesh(*parts, devices=visible_devices(device.type), comm=comm)
     kw = dict(forcing=forcing, pattern=pattern, backend=backend,
               ib_x_edge=ib_x_edge)
     per_step = ShardedPallasSim(cfg, m, **kw)
@@ -329,29 +345,47 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
         snapshot_format: str = "dat", overlap: bool | str = "auto",
         device="cuda") -> dict:
     """Execute cfg.iterations steps with interval outputs on `device`.
-    Returns a summary dict (runtime, MLUPS incl. end-to-end, final Q)."""
-    if checkpoint_format != "npz":
-        raise _not_ported(f"{checkpoint_format} checkpoints",
-                          "ROADMAP Queue 1 item 12")
+    Returns a summary dict (runtime, MLUPS incl. end-to-end, final Q).
+    Under a process group (dist.init_from_env) every rank calls it, with
+    the same arguments."""
+    if checkpoint_format not in ("npz", "orbax"):
+        raise ValueError(f"checkpoint_format must be npz or orbax, got "
+                         f"{checkpoint_format!r}")
     cfg.validate()
+    comm = dist.current()
+    root = comm is None or comm.rank == 0
+    quiet = quiet or not root
     mesh_reason = None
+    if comm is not None:
+        if torch.device(device).type != comm.device.type:
+            raise ValueError(f"the process group runs on {comm.device}, "
+                             f"the run asks for {device}")
+        device = comm.device
     if mesh == "auto":
-        mesh, mesh_reason = _resolve_auto_mesh(cfg, resolve_device(device))
+        mesh, mesh_reason = _resolve_auto_mesh(cfg, resolve_device(device),
+                                               comm)
+    if comm is not None and comm.world > 1 and not mesh:
+        raise ValueError(f"a run of {comm.world} ranks needs a mesh of "
+                         f"shards (--mesh Y,X)"
+                         + (f"; --mesh auto: {mesh_reason}" if mesh_reason
+                            else ""))
     # a mesh spreads over the visible devices; ShARC pins one device
-    device = resolve_device(device) if mesh else _select_device(cfg, device)
+    device = resolve_device(device) if mesh or comm \
+        else _select_device(cfg, device)
     overlap, overlap_reason = _resolve_overlap(overlap, snapshot_format)
     if mesh:
         sim = _make_mesh_sim(cfg, backend, forcing, temporal, mesh,
-                             ib_x_edge, pattern, device)
+                             ib_x_edge, pattern, device, comm)
     else:
         sim = MucociliarySim(cfg, backend=backend, forcing=forcing,
                              temporal=temporal, ib_x_edge=ib_x_edge,
                              pattern=pattern, device=device)
 
     paths = OutputPaths(output_root, cfg)
-    paths.makedirs()
+    if root:
+        paths.makedirs()
     interval = max(cfg.interval, 1)
-    simlog = SimLog(paths.simlog_path, cfg)
+    simlog = SimLog(paths.simlog_path, cfg) if root else _Discard()
     resolved = sim.resolved_config()
     extra = {"Backend": backend, "Forcing": forcing,
              "Dtype": resolved["dtype"]}
@@ -367,6 +401,10 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     extra["Resolved backend"] = resolved["backend"] + (
         f" ({resolved['backend_reason']})"
         if resolved["backend_reason"] else "")
+    if resolved.get("distributed"):
+        d = resolved["distributed"]
+        extra["Distributed"] = (f"{d['world']} rank(s), transport "
+                                f"{d['transport']}; rank 0 writes")
     extra["Kernel path"] = resolved["band_leg"]
     extra["Storage"] = resolved["storage"]
     extra["IB path"] = resolved["ib_path"]
@@ -385,19 +423,25 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
               f"ib={resolved['ib_path']} device={extra['Device']}")
 
     if resume_from:
-        if os.path.isdir(resume_from):
-            raise _not_ported("orbax resume", "ROADMAP Queue 1 item 12")
-        state, _ = ckpt.load(resume_from, cfg, device=sim.device)
-        if mesh:
-            state = sim.place_state(state)    # cut onto the mesh
-        elif state.force.shape[1] == cfg.ydim:
+        if os.path.isdir(resume_from):    # the sharded directory format
+            state, _ = ckpt.load_dir(resume_from, cfg,
+                                     sim=sim if mesh else None,
+                                     device=sim.device)
+        else:
+            state, _ = ckpt.load(resume_from, cfg, device=sim.device)
+            if mesh:
+                state = sim.place_state(state)    # cut onto the mesh
+        if not mesh and state.force.shape[1] == cfg.ydim:
             # jnp-mesh checkpoints keep the force full-size; this layout
             # is band-only (zero above the band by construction)
             state = state._replace(
                 force=state.force[:, :cfg.force_band].contiguous())
         it0 = state.it
-        keep = _resume_flux_rows(paths.flux_path, cfg, it0, interval)
-        flux = FluxWriter(paths.flux_path, cfg, keep_rows=keep)
+        if root:
+            keep = _resume_flux_rows(paths.flux_path, cfg, it0, interval)
+            flux = FluxWriter(paths.flux_path, cfg, keep_rows=keep)
+        else:
+            flux = _Discard()
         prev_k = _last_simlog_temporal_k(paths.simlog_path)
         simlog.write_resume_note(it0)
         if prev_k is not None and prev_k != int(resolved["temporal"]):
@@ -410,12 +454,13 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
         simlog.write_extra({k: v for k, v in extra.items()
                             if k.startswith(("Resolved", "Kernel", "Device",
                                              "Storage", "IB path",
-                                             "Temporal", "Mesh"))})
+                                             "Temporal", "Mesh",
+                                             "Distributed"))})
         if not quiet:
             print(f"Resumed from {resume_from} at it={it0}")
     else:
         state = sim.init_state()
-        flux = FluxWriter(paths.flux_path, cfg)
+        flux = FluxWriter(paths.flux_path, cfg) if root else _Discard()
         simlog.write_header(extra=extra)
     meter = ThroughputMeter(cells=cfg.size)
     start_epoch = time.time()
@@ -426,12 +471,12 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
     it_start = state.it
     snap = _SnapshotPipeline(paths, cfg, fmt=snapshot_format,
                              overlap=overlap)
-    trace = (_FirstIntervalTrace(profile_dir, device, quiet) if profile_dir
-             else None)
+    trace = (_FirstIntervalTrace(profile_dir, device, quiet)
+             if profile_dir and root else None)
     try:
         state = _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
                       checkpoint_every, paths, start_epoch, t_start, state,
-                      trace)
+                      trace, checkpoint_format)
     finally:
         snap.close()
         if trace is not None:   # a run shorter than one interval
@@ -465,7 +510,8 @@ def run(cfg: SimConfig, output_root: str = "Data/Test", backend: str = "auto",
 
 
 def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
-          checkpoint_every, paths, start_epoch, t_start, state, trace=None):
+          checkpoint_every, paths, start_epoch, t_start, state, trace=None,
+          checkpoint_format="npz"):
     """The interval loop (JAX runner.py:569-630); returns the final state.
     ``trace`` (a _FirstIntervalTrace or None) stops after the first
     interval."""
@@ -475,20 +521,24 @@ def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
     while it < cfg.iterations:
         # output at the start of each interval boundary (main.cu:938)
         boundary = it % interval == 0
+        staged = None
         if boundary:
             if cfg.bigdata:
-                # fields of the pre-chunk state; their host copies are
-                # enqueued before the chunk
-                staged = snap.stage(*sim.fields(state),
-                                    *sim.boundary_fields(state))
-                if not snap.overlap:
-                    snap.write_sync(it, staged)
+                # fields of the pre-chunk state (gathered to rank 0 on a
+                # process group); their host copies are enqueued before
+                # the chunk
+                fields = sim.fields(state)
+                if fields is not None:
+                    staged = snap.stage(*fields,
+                                        *sim.boundary_fields(state))
+                    if not snap.overlap:
+                        snap.write_sync(it, staged)
             flux.append(it, float(state.q))
 
         n = min(interval - it % interval, cfg.iterations - it)
         meter.start()
         state = sim.run_chunk(state, n)
-        if boundary and cfg.bigdata and snap.overlap:
+        if staged is not None and snap.overlap:
             snap.submit(it, staged)
         _sync(sim)
         meter.stop(n)
@@ -509,8 +559,15 @@ def _loop(cfg, sim, snap, flux, meter, simlog, interval, quiet,
         # "every N iterations" tracked against the last save: the loop
         # stops only on interval boundaries
         if checkpoint_every and it - last_ckpt >= checkpoint_every:
-            ckpt.save(os.path.join(paths.raw_dir, "checkpoint.npz"),
-                      sim.gather_state(state)
-                      if isinstance(state, MeshState) else state, cfg)
+            mesh_sim = sim if isinstance(state, MeshState) else None
+            if checkpoint_format == "orbax":
+                ckpt.save_dir(os.path.join(paths.raw_dir,
+                                           "checkpoint_orbax"),
+                              state, cfg, mesh_sim)
+            else:
+                whole = sim.gather_state(state) if mesh_sim else state
+                if whole is not None:      # rank 0's (or the only) state
+                    ckpt.save(os.path.join(paths.raw_dir,
+                                           "checkpoint.npz"), whole, cfg)
             last_ckpt = it
     return state

@@ -102,10 +102,19 @@ def test_cli_temporal_k_matches_single_step(tmp_path):
     ["--resume", "."],                               # an orbax directory
 ])
 def test_cli_unported_modes_refuse(tmp_path, flag, capsys):
-    rc = main(ARGS + ["--output", str(tmp_path), "--quiet", "--device",
-                      "cpu"] + flag)
-    assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    # The two modes this test once saw refused now run (the name is kept):
+    # --checkpoint-format orbax writes the port's sharded directory, and
+    # --resume DIR continues from one ("." stands for it).
+    base = ARGS + ["--output", str(tmp_path), "--quiet", "--device", "cpu"]
+    ck = tmp_path / "Raw" / "4" / "1" / "checkpoint_orbax"
+    assert main(base + ["--checkpoint-every", "25", "--checkpoint-format",
+                        "orbax"]) == 0
+    assert (ck / "iblb.json").is_file() and (ck / ".metadata").is_file()
+    if flag[0] == "--resume":
+        assert main(base + ["--resume", str(ck)]) == 0
+        assert "Resumed from checkpoint at iteration 50" in (
+            tmp_path / SIMLOG).read_text()
+    assert "ROADMAP" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("temporal,leg", [("1", "single_step"),

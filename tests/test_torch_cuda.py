@@ -1793,3 +1793,37 @@ def test_quirk_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
     gate = 1e-5 if dtype == "float32" else 1e-11
     assert rel_l2(ua, ub) <= gate
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,transport", [
+    (2, "gloo (staged through host memory)"), (1, "nccl")])
+def test_distributed_transport_on_the_card(card, tmp_path, world,
+                                           transport):
+    # ranks on the one card (tests/test_torch_distributed.py's worker):
+    # two take gloo staged through host memory (NCCL refuses two ranks on
+    # one card), one takes NCCL.  Each rank's ring shift of card tensors
+    # (f32, f64, bf16, 0-d) equals the values moved on one rank, the
+    # ordered sum the local sum, and the per-step and temporal meshes
+    # equal the one-process mesh bit for bit
+    import json
+    import os
+
+    import test_torch_distributed as td
+
+    from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
+
+    out = td._wait(td._start(world, "card", str(tmp_path)))
+    for r in range(world):
+        with open(os.path.join(out, f"card.rank{r}.json")) as fh:
+            assert json.load(fh) == {"transport": transport,
+                                     "device": "cuda:0"}
+    for name, (_, _, n) in td.CARD_RUNS.items():
+        cfg, sim = td.card_mesh(None, name, card)
+        one = sim.gather_state(sim.run_chunk(sim.init_state(), n))
+        got, _ = ckpt.load(os.path.join(out, f"card_{name}.npz"))
+        assert got.it == one.it == n
+        for field in ("f", "force", "lasts", "q"):
+            assert torch.equal(getattr(got, field),
+                               getattr(one, field).cpu()), (name, field)
+

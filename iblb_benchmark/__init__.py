@@ -1,0 +1,10 @@
+"""The benchmark of cuda_iblb_11_tpu_torch on NVIDIA GPUs.
+
+``python3 -m iblb_benchmark.run --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of BENCHMARK.json once (run.py); the cell's
+pieces are data found by name: configs/, traffic/, workloads/, metrics/
+and counts/.  reference/ is the plain model the check (check.py) holds
+the program to; control.py reads the check's limits' two sides and
+sets.py runs sets of runs for the bounds' spreads.  Nothing here imports
+JAX or the JAX package.
+"""

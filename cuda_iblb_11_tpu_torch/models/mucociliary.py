@@ -38,6 +38,12 @@ cuda backend and 1 elsewhere (as JAX resolves it only on pallas), with the
 reason kept in temporal_reason.  The plan holds a band super-step to no
 footprint budget on any device (ops/temporal.py says why), so a plan is
 the same on the card and on the CPU.
+
+Host spans (utils/spans.py, recorded only while it records; n in steps):
+iblb.run_chunk, inside it iblb.steps_temporal and iblb.steps_single, each
+with its iblb.kinematics (the temporal one also iblb.band_points), and
+inside those one span a kernel call (iblb.B2, B2h, B3, B4, B5 or B6; n = K
+for B4-B6) and iblb.ib, the torch IB and flux of one step.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from cuda_iblb_11_tpu_torch.ops.temporal import plan_auto, plan_temporal
 from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
     temporal_bulk, temporal_bulk_reference,
 )
+from cuda_iblb_11_tpu_torch.utils.spans import span
 
 # the reference hardcodes the flux divisor (ImmersedBoundary.cu:261)
 _FLUX_DIVISOR = 192.0
@@ -199,46 +206,55 @@ class MucociliarySim:
 
     # --- one kernel call each; backend is the one choice between kernel
     # and plain version (a wrapper never takes the plain version for a
-    # CUDA tensor).  Both write the new f into the caller's buffer.
+    # CUDA tensor).  Both write the new f into the caller's buffer.  Each
+    # call is one span named after its kernel (utils/spans.py), on either
+    # backend, so the kernel spans count what the wrappers' .launches do.
 
     def _pick(self, kernel, plain):
         return plain if self.backend == "torch" else kernel
 
     def _substep(self, f, force, out):
-        return self._pick(fused_substep, fused_substep_reference)(
-            f, force, self.cfg, self.walls, self.forcing, self.storage,
-            out=out)
+        with span("iblb.B2", 1):
+            return self._pick(fused_substep, fused_substep_reference)(
+                f, force, self.cfg, self.walls, self.forcing, self.storage,
+                out=out)
 
     def _collide_stream(self, f, force, out):
-        return self._pick(collide_stream, collide_stream_reference)(
-            f, force, self.cfg.tau, self.cfg.tau2, self.walls, self.forcing,
-            self.storage, out=out)
+        with span("iblb.B2h", 1):
+            return self._pick(collide_stream, collide_stream_reference)(
+                f, force, self.cfg.tau, self.cfg.tau2, self.walls,
+                self.forcing, self.storage, out=out)
 
     def _band_substep(self, f_ext, force, out, f1out):
         """B3 on the extended band: flags [0, 1, 0] (bottom wall, no top
         wall, zero halo rows), exposing row band-1 into f1out, emitting q
         and the flux column."""
-        return self._pick(sharded_fused_substep,
-                          sharded_fused_substep_reference)(
-            (0, 1, 0), f_ext, force, None, None, self.cfg, self.walls,
-            self.forcing, self.storage, self.cfg.force_band - 1, True,
-            out=out, f1out=f1out)
+        with span("iblb.B3", 1):
+            return self._pick(sharded_fused_substep,
+                              sharded_fused_substep_reference)(
+                (0, 1, 0), f_ext, force, None, None, self.cfg, self.walls,
+                self.forcing, self.storage, self.cfg.force_band - 1, True,
+                out=out, f1out=f1out)
 
     def _bulk(self, f_bulk, bhalos, out):
-        return self._pick(temporal_bulk, temporal_bulk_reference)(
-            f_bulk, bhalos, self.cfg, self.walls, self.forcing, self.storage,
-            out=out)
+        with span("iblb.B4", self.temporal):
+            return self._pick(temporal_bulk, temporal_bulk_reference)(
+                f_bulk, bhalos, self.cfg, self.walls, self.forcing,
+                self.storage, out=out)
 
     def _band_super(self, f_ext, force, xs, out):
         """B5 on the whole band, or B6 on the plan's x-tiles."""
         plan = self.plan
         if plan.band_leg == "band_super_xtiled":
-            return self._pick(band_super_tiled, band_super_tiled_reference)(
-                f_ext, force, *xs, self.cfg, plan.halo, plan.tile_x, plan.gx,
-                self.walls, self.forcing, self.storage, out=out)
-        return self._pick(band_super, band_super_reference)(
-            f_ext, force, *xs, self.cfg, plan.halo, self.walls,
-            self.forcing, self.storage, out=out)
+            with span("iblb.B6", plan.K):
+                return self._pick(band_super_tiled,
+                                  band_super_tiled_reference)(
+                    f_ext, force, *xs, self.cfg, plan.halo, plan.tile_x,
+                    plan.gx, self.walls, self.forcing, self.storage, out=out)
+        with span("iblb.B5", plan.K):
+            return self._pick(band_super, band_super_reference)(
+                f_ext, force, *xs, self.cfg, plan.halo, self.walls,
+                self.forcing, self.storage, out=out)
 
     # --- single-step path
 
@@ -258,15 +274,18 @@ class MucociliarySim:
         cfg = self.cfg
         if self.ib_x_edge == "reference":
             f_new = self._collide_stream(f, force, out)
-            force_new = self._stencil_ib(f_new, s, u_s, eps)
-            return f_new, force_new, q + ib.flux_increment(
-                f_new, force_new, cfg.flux_x, _FLUX_DIVISOR, self.storage)
+            with span("iblb.ib", 1):
+                force_new = self._stencil_ib(f_new, s, u_s, eps)
+                return f_new, force_new, q + ib.flux_increment(
+                    f_new, force_new, cfg.flux_x, _FLUX_DIVISOR,
+                    self.storage)
         f_new, q_band, fluxcol = self._substep(f, force, out)
-        factors = ib_band.delta_factors(anchored, cfg.xdim, cfg.force_band,
-                                        self.aux_dtype)
-        f_s = ib_band.interpolate_from_moments(q_band, u_s, factors)
-        force_new = ib_band.spread(f_s, eps, factors)
-        q_new = q + ib.flux_from_cols(fluxcol, force_new, cfg.flux_x)
+        with span("iblb.ib", 1):
+            factors = ib_band.delta_factors(anchored, cfg.xdim,
+                                            cfg.force_band, self.aux_dtype)
+            f_s = ib_band.interpolate_from_moments(q_band, u_s, factors)
+            force_new = ib_band.spread(f_s, eps, factors)
+            q_new = q + ib.flux_from_cols(fluxcol, force_new, cfg.flux_x)
         return f_new, force_new, q_new
 
     # kinematics of at most this many steps are batched at once
@@ -276,26 +295,29 @@ class MucociliarySim:
         """(pos, u_s, eps, anchor, frac, s) of steps it0 .. it0 + n - 1,
         each with a leading [n] axis: one batched f64 evaluation; s are the
         raw placed positions the quirk mode's stencil IB takes."""
-        its = torch.arange(it0, it0 + n, dtype=torch.int64,
-                           device=self.device)
-        pos, vel = self.cilia.kinematics(its)              # [n, c, nodes, 2]
-        s, u_s, eps = self.cilia.place_and_mask(pos, vel)
-        anchor, frac = self.cilia.anchored_nodes(pos)
-        return pos, u_s, eps, anchor, frac, s
+        with span("iblb.kinematics", n):
+            its = torch.arange(it0, it0 + n, dtype=torch.int64,
+                               device=self.device)
+            pos, vel = self.cilia.kinematics(its)          # [n, c, nodes, 2]
+            s, u_s, eps = self.cilia.place_and_mask(pos, vel)
+            anchor, frac = self.cilia.anchored_nodes(pos)
+            return pos, u_s, eps, anchor, frac, s
 
     def _run_steps(self, state: FlowState, n: int) -> FlowState:
-        pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it, n)
-        f, force, q = state.f, state.force, state.q
-        # two f buffers, neither of them state.f (the caller's state stays
-        # valid)
-        bufs = [torch.empty_like(f) for _ in range(min(n, 2))]
-        for k in range(n):
-            f, force, q = self._fluid_ib_step(
-                f, force, q, u_s[k], eps[k], (anchor[k], frac[k]), s[k],
-                bufs[k % 2])
-        return FlowState(f=f, force=force,
-                         lasts=pos[-1].to(self.aux_dtype), q=q,
-                         it=state.it + n)
+        with span("iblb.steps_single", n):
+            pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it,
+                                                                  n)
+            f, force, q = state.f, state.force, state.q
+            # two f buffers, neither of them state.f (the caller's state
+            # stays valid)
+            bufs = [torch.empty_like(f) for _ in range(min(n, 2))]
+            for k in range(n):
+                f, force, q = self._fluid_ib_step(
+                    f, force, q, u_s[k], eps[k], (anchor[k], frac[k]), s[k],
+                    bufs[k % 2])
+            return FlowState(f=f, force=force,
+                             lasts=pos[-1].to(self.aux_dtype), q=q,
+                             it=state.it + n)
 
     # --- K-step temporal path
 
@@ -320,18 +342,21 @@ class MucociliarySim:
         for s in range(K):
             f_ext, _, q_band, fluxcol = self._band_substep(
                 f_ext, force, ebufs[s % 2], bhalos[s])
-            if self.ib_x_edge == "reference":
-                force = self._stencil_ib(f_ext, s_pts[s], u_s[s],
-                                         eps[s]).to(force.dtype)
-            else:
-                factors = ib_band.delta_factors((anchor[s], frac[s]), xdim,
-                                                band, self.aux_dtype)
-                f_s = ib_band.interpolate_from_moments(q_band, u_s[s],
-                                                       factors)
-                force = ib_band.spread(f_s, eps[s], factors).to(force.dtype)
-            # band rows only: the pad rows' flux comes from the bulk
-            flux_band = flux_band + ib.flux_from_cols(
-                fluxcol[:, :band], force, cfg.flux_x, _FLUX_DIVISOR)
+            with span("iblb.ib", 1):
+                if self.ib_x_edge == "reference":
+                    force = self._stencil_ib(f_ext, s_pts[s], u_s[s],
+                                             eps[s]).to(force.dtype)
+                else:
+                    factors = ib_band.delta_factors((anchor[s], frac[s]),
+                                                    xdim, band,
+                                                    self.aux_dtype)
+                    f_s = ib_band.interpolate_from_moments(q_band, u_s[s],
+                                                           factors)
+                    force = ib_band.spread(f_s, eps[s],
+                                           factors).to(force.dtype)
+                # band rows only: the pad rows' flux comes from the bulk
+                flux_band = flux_band + ib.flux_from_cols(
+                    fluxcol[:, :band], force, cfg.flux_x, _FLUX_DIVISOR)
         _, flux_bulk = self._bulk(f[:, band:], bhalos, f_new[:, band:])
         f_new[:, :band].copy_(f_ext[:, :band])
         return f_new, force, q + flux_band + flux_bulk.sum() / _FLUX_DIVISOR
@@ -354,24 +379,27 @@ class MucociliarySim:
         mucociliary.py:488-526)."""
         K = self.temporal
         n_super = n // K
-        pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it, n)
-        f, force, q = state.f, state.force, state.q
-        if self.plan.band_leg != "per_substep":
-            xs_all = prep_band_super_points(
-                self.cfg, K, self.plan.halo, self.aux_dtype, u_s, eps,
-                anchor, frac, n_super)
-            for i in range(n_super):
-                f, force, q = self._super_step_fused(
-                    f, force, q, [x[i] for x in xs_all])
-        else:
-            for i in range(n_super):
-                sl = slice(i * K, (i + 1) * K)
-                f, force, q = self._super_step(f, force, q, u_s[sl],
-                                               eps[sl], anchor[sl],
-                                               frac[sl], s[sl])
-        return FlowState(f=f, force=force,
-                         lasts=pos[-1].to(self.aux_dtype), q=q,
-                         it=state.it + n)
+        with span("iblb.steps_temporal", n):
+            pos, u_s, eps, anchor, frac, s = self.step_kinematics(state.it,
+                                                                  n)
+            f, force, q = state.f, state.force, state.q
+            if self.plan.band_leg != "per_substep":
+                with span("iblb.band_points", n):
+                    xs_all = prep_band_super_points(
+                        self.cfg, K, self.plan.halo, self.aux_dtype, u_s,
+                        eps, anchor, frac, n_super)
+                for i in range(n_super):
+                    f, force, q = self._super_step_fused(
+                        f, force, q, [x[i] for x in xs_all])
+            else:
+                for i in range(n_super):
+                    sl = slice(i * K, (i + 1) * K)
+                    f, force, q = self._super_step(f, force, q, u_s[sl],
+                                                   eps[sl], anchor[sl],
+                                                   frac[sl], s[sl])
+            return FlowState(f=f, force=force,
+                             lasts=pos[-1].to(self.aux_dtype), q=q,
+                             it=state.it + n)
 
     @full_f32()   # one pin per chunk around every step's contractions
     def run_chunk(self, state: FlowState, n_steps: int) -> FlowState:
@@ -379,15 +407,16 @@ class MucociliarySim:
         K > 1 each chunk of <= 512 steps runs its largest multiple of K as
         super-steps and the rest single-step, as the JAX model splits it."""
         K = self.temporal
-        while n_steps > 0:
-            k = min(n_steps, self._MAX_CHUNK)
-            if K > 1 and k >= K:
-                k -= k % K
-                state = self._run_steps_temporal(state, k)
-            else:
-                state = self._run_steps(state, k)
-            n_steps -= k
-        return state
+        with span("iblb.run_chunk", n_steps):
+            while n_steps > 0:
+                k = min(n_steps, self._MAX_CHUNK)
+                if K > 1 and k >= K:
+                    k -= k % K
+                    state = self._run_steps_temporal(state, k)
+                else:
+                    state = self._run_steps(state, k)
+                n_steps -= k
+            return state
 
     def fields(self, state: FlowState):
         """(rho, u_corrected) for output (main.cu:944-971)."""

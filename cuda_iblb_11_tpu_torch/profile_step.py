@@ -13,13 +13,20 @@ single-step path; --ib-x-edge reference for the quirk mode), or with
 --mesh the sharded sim the runner resolves for that mesh over the visible
 cards (shards share a card when there are fewer), warms
 it up with the same steps, then times ``steps`` steps from the initial
-state on the host clock without the profiler, and runs the same steps
-again under ``torch.profiler``.  It reports, per step:
+state on the host clock without the profiler, recording the model step's
+host spans (utils/spans.py), and runs the same steps again under
+``torch.profiler``, timed on the host clock between synchronises.  It
+reports, per step:
 
     wall_ms            host wall time of the unprofiled run
+    host_us_per_step   {span name: host time inside it, in us}, from the
+                       unprofiled run's spans (a span's time includes its
+                       children's)
+    profiled_wall_ms   host wall time of the profiled run
     device_busy_ms     union of all device activity (kernels, memsets,
                        copies) in the profiled run; None without a card
-    idle_share         1 - device_busy_ms / wall_ms
+    idle_share         1 - device_busy_ms / profiled_wall_ms: busy and
+                       wall from the same run
     device_kernels     device kernels launched
     launch_calls       cudaLaunchKernel-family runtime calls
     aten_ops           outermost aten ops (the eager op count)
@@ -44,6 +51,7 @@ from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.models.mucociliary import MucociliarySim
 from cuda_iblb_11_tpu_torch.ops import probes
 from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
+from cuda_iblb_11_tpu_torch.utils import spans
 
 # name -> (c_num, c_space, ydim); SimConfig's defaults otherwise
 GRIDS = {"288x192": (6, 48, 192), "2048x2048": (16, 128, 2048),
@@ -88,17 +96,27 @@ def profile_sim(sim: MucociliarySim, steps: int) -> dict:
     sim.run_chunk(sim.init_state(), steps)
     _sync(dev)
     st = sim.init_state()
-    t0 = time.perf_counter()
-    sim.run_chunk(st, steps)
-    _sync(dev)
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    spans.start()
+    try:
+        t0 = time.perf_counter()
+        sim.run_chunk(st, steps)
+        _sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    finally:
+        spans.stop()
+    host_us = {}
+    for r in spans.records():
+        host_us[r.name] = host_us.get(r.name, 0.0) + r.ns / 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
+        _sync(dev)
+        t0 = time.perf_counter()
         sim.run_chunk(st, steps)
         _sync(dev)
+        profiled_wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     events = prof.events()
     device_evts = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = None
@@ -116,8 +134,11 @@ def profile_sim(sim: MucociliarySim, steps: int) -> dict:
     return dict(
         steps=steps,
         wall_ms=wall_ms,
+        host_us_per_step=host_us,
+        profiled_wall_ms=profiled_wall_ms,
         device_busy_ms=busy_ms,
-        idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        idle_share=(None if busy_ms is None
+                    else 1.0 - busy_ms / profiled_wall_ms),
         device_kernels=len(device_evts) / steps,
         launch_calls=sum("LaunchKernel" in e.name for e in cpu_evts) / steps,
         aten_ops=sum(_is_outermost_aten(e) for e in cpu_evts) / steps,
@@ -170,12 +191,16 @@ def main(argv=None) -> int:
         print(f"{name} {row['dtype']} {row['ib_path']} mesh={row['mesh']} "
               f"K={row['temporal']} {row['band_leg']}: wall "
               f"{row['wall_ms']:.4f} ms/step, device busy "
-              f"{'not measured' if busy is None else f'{busy:.4f} ms'}, "
+              f"{'not measured' if busy is None else f'{busy:.4f} ms'} of "
+              f"{row['profiled_wall_ms']:.4f} profiled, "
               f"{row['device_kernels']:.1f} kernels, "
               f"{row['launch_calls']:.1f} launch calls, "
               f"{row['aten_ops']:.1f} aten ops per step", flush=True)
         for k in row["top_kernels"]:
             print(f"    {k['ms']:.4f} ms  {k['name']}", flush=True)
+        print("    host us/step: " + ", ".join(
+            f"{n} {us:.2f}" for n, us in row["host_us_per_step"].items()),
+            flush=True)
         del sim
     line = json.dumps(record)
     if args.out:

@@ -36,6 +36,7 @@ from cuda_iblb_11_tpu_torch.io.writers import (
     write_cilia_snapshot_npz, write_fluid_snapshot,
     write_fluid_snapshot_npz,
 )
+from cuda_iblb_11_tpu_torch.utils import spans
 from cuda_iblb_11_tpu_torch.utils.timing import (
     ThroughputMeter, predict_completion, seconds,
 )
@@ -235,7 +236,9 @@ PROFILE_TRACE = "trace.json"   # the --profile-dir trace's file name
 class _FirstIntervalTrace:
     """torch.profiler over the run's first interval, as the JAX runner
     traces it (runner.py:423-426, 598-605): CPU activity, and the card's
-    where the run is on one; ``stop`` writes a Chrome trace into
+    where the run is on one, with the model step's host spans
+    (utils/spans.py) recorded, so the trace holds them as ``iblb.`` ranges
+    on the profiler's clock; ``stop`` writes a Chrome trace into
     ``profile_dir`` and says so unless quiet."""
 
     def __init__(self, profile_dir: str, device: torch.device, quiet: bool):
@@ -248,10 +251,12 @@ class _FirstIntervalTrace:
         self.profile_dir, self.quiet = profile_dir, quiet
         self.prof = profile(activities=acts)
         self.prof.start()
+        spans.start()
 
     def stop(self) -> None:
         if self.prof is None:
             return
+        spans.stop()
         self.prof.stop()
         self.prof.export_chrome_trace(os.path.join(self.profile_dir,
                                                    PROFILE_TRACE))

@@ -8,12 +8,16 @@ digit.  SimLog: the reference's header lines and the configuration lines
 the two packages share must be identical.
 """
 
+import json
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
 
 from cuda_iblb_11_tpu.cli import main as jax_main
 from cuda_iblb_11_tpu_torch.cli import main
+from cuda_iblb_11_tpu_torch.utils import spans
 
 import _torch_threads  # noqa: F401  (one torch thread per xdist worker)
 
@@ -249,8 +253,8 @@ def test_cli_mesh_auto_is_unsharded_on_one_device(tmp_path):
 
 def test_cli_profile_dir_traces_the_first_interval(tmp_path, capsys):
     # --profile-dir: a torch.profiler Chrome trace of the first interval in
-    # the directory, the JAX runner's message, and the same flux as a run
-    # without it
+    # the directory, with the model step's host spans in it, the JAX
+    # runner's message, and the same flux as a run without it
     base = ARGS + ["--quiet", "--device", "cpu", "--dtype", "float32",
                    "--temporal", "1"]
     trace = tmp_path / "trace"
@@ -260,6 +264,11 @@ def test_cli_profile_dir_traces_the_first_interval(tmp_path, capsys):
                    str(trace)]) == 0
     assert f"Profiler trace written to {trace}" in capsys.readouterr().out
     with open(trace / "trace.json") as fh:
-        assert "traceEvents" in fh.read(4096)
+        events = json.load(fh)["traceEvents"]
+    names = Counter(e.get("name") for e in events)
+    # one interval of 25 steps at temporal 1
+    assert names["iblb.run_chunk"] == names["iblb.kinematics"] == 1
+    assert names["iblb.B2"] == names["iblb.ib"] == 25
+    assert spans.span("iblb.run_chunk") is spans.NULL   # recording off
     assert ((tmp_path / "a" / FLUX).read_bytes()
             == (tmp_path / "b" / FLUX).read_bytes())

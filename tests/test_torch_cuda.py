@@ -12,8 +12,9 @@ at 192^2 over 4,000 steps (single-step and auto), B2 from the
 identity-collide build streaming without colliding, B4 from the
 one-block-per-SM build equal to the default build's, a 2048^2 metachrony
 sweep point in f32 against f64 (1e-3) with its exact B5/B4 launches and
-its refusals, and validate_flux's f64 early curve against the JAX f64
-oracle (1e-9).  They carry the
+its refusals, validate_flux's f64 early curve against the JAX f64
+oracle (1e-9), and the model step's kernel spans counting the wrappers'
+launches.  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -32,7 +33,7 @@ order.
 """
 
 import dataclasses
-
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -77,6 +78,7 @@ from cuda_iblb_11_tpu_torch.ops.temporal_bulk import (
 from cuda_iblb_11_tpu_torch.parallel import (
     ShardedPallasSim, ShardedTemporalSim, make_mesh,
 )
+from cuda_iblb_11_tpu_torch.utils import spans
 
 GATE = {torch.float32: 1e-6, torch.float64: 1e-12}
 GRIDS = {
@@ -413,6 +415,28 @@ def test_sim_temporal_cuda_matches_torch_backend(card, grid, K):
     assert torch.isfinite(ua).all()
     assert rel_l2(ua, ub) <= 1e-5
     assert abs(float(a.q) - float(b.q)) <= 1e-5 * abs(float(b.q))
+
+
+@pytest.mark.cuda
+def test_kernel_spans_count_the_wrappers_launches(card):
+    # each kernel span wraps one wrapper call: 3 super-steps and 3 single
+    # steps at K = 8 on the band super-step leg
+    K = 8
+    sim = MucociliarySim(SimConfig(**SUPER), backend="cuda", device=card,
+                         temporal=K)
+    wrappers = {"iblb.B2": fused_substep, "iblb.B4": temporal_bulk,
+                "iblb.B5": band_super}
+    n0 = {name: w.launches for name, w in wrappers.items()}
+    spans.start()
+    try:
+        sim.run_chunk(sim.init_state(), 3 * K + 3)
+        torch.cuda.synchronize()
+    finally:
+        spans.stop()
+    names = Counter(r.name for r in spans.records())
+    for name, w in wrappers.items():
+        assert names[name] == w.launches - n0[name] == 3, name
+    assert names["iblb.run_chunk"] == 1 and names["iblb.ib"] == 3
 
 
 # --- B6 ------------------------------------------------------------------

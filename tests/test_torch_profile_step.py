@@ -24,10 +24,17 @@ def test_profile_sim_on_cpu():
                          device="cpu", dtype=torch.float32)
     row = profile_step.profile_sim(sim, steps=2)
     assert row["steps"] == 2 and row["wall_ms"] > 0
+    assert row["profiled_wall_ms"] > 0
     assert row["device_busy_ms"] is None and row["idle_share"] is None
     assert row["device_kernels"] == 0 and row["launch_calls"] == 0
     assert row["top_kernels"] == []
     assert row["aten_ops"] > 10   # the eager step is many small ops
+    # the single-step path's spans, from the unprofiled run
+    host = row["host_us_per_step"]
+    assert set(host) == {"iblb.run_chunk", "iblb.steps_single",
+                         "iblb.kinematics", "iblb.B2", "iblb.ib"}
+    assert 0 < host["iblb.B2"] < host["iblb.steps_single"] \
+        <= host["iblb.run_chunk"] <= 1e3 * row["wall_ms"]
 
 
 @pytest.mark.parametrize("K", [2, 4])
@@ -40,6 +47,9 @@ def test_profile_sim_temporal_on_cpu(K):
     row = profile_step.profile_sim(sim, steps=K)
     assert row["steps"] == K and row["wall_ms"] > 0
     assert row["device_busy_ms"] is None and row["aten_ops"] > 10
+    host = row["host_us_per_step"]
+    assert {"iblb.steps_temporal", "iblb.B4"} <= set(host)
+    assert "iblb.steps_single" not in host
 
 
 def test_main_parses_temporal(monkeypatch):
@@ -90,3 +100,5 @@ def test_profile_sim_on_a_mesh_on_cpu():
     row = profile_step.profile_sim(sim, steps=2)
     assert row["steps"] == 2 and row["wall_ms"] > 0
     assert row["device_busy_ms"] is None and row["aten_ops"] > 10
+    # the mesh keeps no spans but the kinematics it borrows from the model
+    assert set(row["host_us_per_step"]) == {"iblb.kinematics"}

@@ -184,8 +184,10 @@ class CiliaModel:
         pos = pos.to(self.dtype)
         vel = vel.to(self.dtype)
         xdim = float(cfg.xdim)
-        x = torch.tensor(self.shift_x, dtype=self.dtype,
-                         device=pos.device) + pos[..., 0]
+        # the shift as a Python scalar, carried in the op's dtype: no
+        # tensor built from it, so no copy to the device that would wait
+        # for the work queued there
+        x = pos[..., 0] + self.shift_x
         # single wrap, thresholds as the reference (< 0, > XDIM)
         x = torch.where(x < 0, x + xdim, torch.where(x > xdim, x - xdim, x))
         y = pos[..., 1] + 1.0

@@ -112,8 +112,9 @@ def prep_band_super_points(cfg, K, halo, aux_dtype, u_s, eps, anchor, frac,
     wstart = (torch.arange(c, dtype=torch.int32, device=dev) * cfg.c_space
               - halo)[None, :, None]
     node = torch.arange(128, device=dev)[None, None, :]
-    axl = torch.where(node < ln, blk(anchor[..., 0], 0) - wstart,
-                      torch.tensor(-20000, dtype=torch.int32, device=dev))
+    # the inert anchor as a Python scalar: the result stays int32, and no
+    # copy to the device waits for the work queued there
+    axl = torch.where(node < ln, blk(anchor[..., 0], 0) - wstart, -20000)
     ay = blk(anchor[..., 1], -20000)
     fx = blk(frac[..., 0], 0.0)
     fy = blk(frac[..., 1], 0.0)

@@ -16,6 +16,7 @@ a caller's TF32 setting does not reach the plain step.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -57,10 +58,15 @@ class WallSpec:
 REFERENCE_WALLS = WallSpec()
 
 
+# built once per dtype and device: a tensor built from host values on every
+# call is a copy that waits for the device's queued work; no caller writes
+# into them
+@functools.cache
 def _c(dtype, device):
     return torch.tensor(C, dtype=dtype, device=device)   # [9, 2]
 
 
+@functools.cache
 def _w(dtype, device):
     return torch.tensor(W, dtype=dtype, device=device)   # [9]
 

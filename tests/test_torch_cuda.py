@@ -13,8 +13,10 @@ identity-collide build streaming without colliding, B4 from the
 one-block-per-SM build equal to the default build's, a 2048^2 metachrony
 sweep point in f32 against f64 (1e-3) with its exact B5/B4 launches and
 its refusals, validate_flux's f64 early curve against the JAX f64
-oracle (1e-9), and the model step's kernel spans counting the wrappers'
-launches.  They carry the
+oracle (1e-9), the model step's kernel spans counting the wrappers'
+launches, and the model step making no host-device sync (a 1,000-step
+interval on the band super-step leg and a single-step chunk, f32, f64 and
+bf16, under torch.cuda.set_sync_debug_mode("error")).  They carry the
 ``cuda`` marker and skip on a host without a CUDA device.  This file
 imports no JAX, so on the GPU host (which has none) it runs without the
 JAX conftest:
@@ -437,6 +439,28 @@ def test_kernel_spans_count_the_wrappers_launches(card):
     for name, w in wrappers.items():
         assert names[name] == w.launches - n0[name] == 3, name
     assert names["iblb.run_chunk"] == 1 and names["iblb.ib"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("leg,K,n", [("band_super_whole", 16, 1000),
+                                     ("single_step", 1, 8)])
+def test_run_chunk_never_waits_for_the_card(card, leg, K, n, dtype):
+    # a 1,000-step interval at K = 16 runs a 512-step chunk and a 480 +
+    # 8-step one; nothing in run_chunk may sync the host with the card,
+    # or each chunk's kinematics would wait for the queued work
+    sim = MucociliarySim(SimConfig(**SUPER, dtype=dtype), backend="cuda",
+                         device=card, temporal=K)
+    assert sim.resolved_config()["band_leg"] == leg
+    state = sim.run_chunk(sim.init_state(), n)   # builds and warms
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sim.run_chunk(state, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert out.it == state.it + n and torch.isfinite(out.q)
 
 
 # --- B6 ------------------------------------------------------------------

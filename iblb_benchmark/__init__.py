@@ -4,7 +4,8 @@
 --trace <0|1>`` runs one cell of BENCHMARK.json once (run.py); the cell's
 pieces are data found by name: configs/, traffic/, workloads/, metrics/
 and counts/.  reference/ is the plain model the check (check.py) holds
-the program to; control.py reads the check's limits' two sides and
-sets.py runs sets of runs for the bounds' spreads.  Nothing here imports
-JAX or the JAX package.
+the program to; control.py reads the check's limits' two sides.  A new
+configuration or cell is added by files and appended BENCHMARK.json
+entries alone: nothing here, and no test, keys on its name.  Nothing here
+imports JAX or the JAX package.
 """

@@ -80,13 +80,3 @@ def us_per_step(w, names, minus=()):
         - sum(s.ns for s, parent in spans
               if s.name in minus and parent in names)
     return ns / 1e3 / steps
-
-
-def step_share(w, name):
-    """The steps of the spans named ``name`` over the window's; None as
-    window()."""
-    win = window(w)
-    if win is None:
-        return None
-    spans, steps = win
-    return sum(s.n for s, _ in spans if s.name == name) / steps

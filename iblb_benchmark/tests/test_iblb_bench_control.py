@@ -16,18 +16,18 @@ import pytest
 import torch
 
 from iblb_benchmark import control, harness
-
-from iblb_benchmark.tests.test_iblb_bench_rehearsal import CELLS, TINY
+from iblb_benchmark.tests import rehearse
+from iblb_benchmark.tests.test_iblb_bench_rehearsal import CELLS
 
 SEEDS = (5, 61, 2**31 + 3)
 
 
 def _readings(name, dtype=None):
     cell = harness.load_cell(name)
-    temporal = 16 if cell.traffic["temporal"] == "auto" else None
     return cell, control.readings(
         cell, SEEDS, 0.05, dtype=dtype, device="cpu",
-        sim_overrides=TINY[cell.config["name"]], temporal=temporal)
+        sim_overrides=dict(rehearse.TINY),
+        temporal=rehearse.temporal(cell))
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -48,7 +48,7 @@ def test_a_cell_on_the_card():
         pytest.skip("needs a CUDA device")
     out = subprocess.run(
         [sys.executable, "-m", "iblb_benchmark.run", "--workload",
-         "array2048_c16.auto", "--seed", str(2**31 + 5), "--seconds", "1",
+         CELLS[0], "--seed", str(2**31 + 5), "--seconds", "1",
          "--trace", "1"], cwd=harness.ROOT, capture_output=True, text=True,
         timeout=1200)
     assert out.returncode == 0, out.stderr[-3000:]

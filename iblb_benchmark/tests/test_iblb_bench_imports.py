@@ -69,12 +69,12 @@ def test_banned_modules_compares_whole_top_level_names(monkeypatch):
 
 
 _CHILD = r"""
-import sys
+import json, sys
 from iblb_benchmark import harness
-cell = harness.load_cell("array2048_c16.auto")
-r = harness.run(cell, 5, 0.05, False, device="cpu",
-                sim_overrides=dict(c_num=4, c_space=64, length=16, ydim=96,
-                                   t_pow=3, p_num=25), temporal=16)
+from iblb_benchmark.tests import rehearse
+with open("BENCHMARK.json") as fh:
+    name = json.load(fh)["workloads"][0]["name"]
+r = rehearse.run(harness.load_cell(name), 5)
 assert r["correct"], r["checks"]
 print("BANNED", harness.banned_modules())
 """

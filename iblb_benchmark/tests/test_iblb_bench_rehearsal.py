@@ -1,32 +1,25 @@
 """Each cell's run rehearsed at a tiny size on the CPU (the program's plain
-versions, temporal K = 16 where the cell runs auto, so the super-steps and
-the single-step remainder of each interval both run), with and without
-the trace; and the runs driven with the timed path broken underneath,
-which the check has to call not correct."""
+versions at rehearse.py's one tiny size), with and without the trace; the
+runs driven with the timed path broken underneath, which the check has to
+call not correct; and a configuration under a name no test names,
+rehearsed the same way."""
 
+import dataclasses
 import json
 import os
 
 import pytest
 
 from iblb_benchmark import check, harness
+from iblb_benchmark.tests import rehearse
 
-# the array's tiny grid keeps the band super-step leg; an interval of 40
-# steps: 32 in super-steps, 8 single
-TINY = {"array2048_c16": dict(c_num=4, c_space=64, length=16, ydim=96,
-                              t_pow=3, p_num=25)}
-LEG = {"array2048_c16": "band_super_whole"}
 with open(os.path.join(harness.ROOT, "BENCHMARK.json")) as fh:
     CELLS = [w["name"] for w in json.load(fh)["workloads"]]
 
 
 def _run(name, trace=False, seed=2**31 + 11, **kw):
     cell = harness.load_cell(name)
-    config = cell.config["name"]
-    temporal = 16 if cell.traffic["temporal"] == "auto" else None
-    return cell, harness.run(cell, seed, 0.05, trace, device="cpu",
-                             sim_overrides=TINY[config], temporal=temporal,
-                             **kw)
+    return cell, rehearse.run(cell, seed, trace=trace, **kw)
 
 
 @pytest.mark.parametrize("trace", [False, True])
@@ -39,7 +32,7 @@ def test_cell_rehearsal(name, trace):
     assert run["interval"] == 40 and run["steps"] == 40 * run["intervals"]
     assert run["first_step"] % 40 == 0 and 0 <= run["first_step"] < 1000
     if cell.traffic["temporal"] == "auto":
-        assert run["resolved"]["band_leg"] == LEG[cell.config["name"]]
+        assert run["resolved"]["band_leg"] == rehearse.LEG
     assert run["resolved"]["dtype"] == cell.traffic["dtype"]
     assert list(r["checks"]) == [n for n in check.NUMBERS
                                  if n in cell.spec["limits"]]
@@ -70,9 +63,9 @@ def test_cell_rehearsal(name, trace):
 
 
 def test_seeds_pick_the_phase_not_the_work():
-    _, a = _run("array2048_c16.auto", seed=7)
-    _, b = _run("array2048_c16.auto", seed=7 + 25)
-    _, c = _run("array2048_c16.auto", seed=8)
+    _, a = _run(CELLS[0], seed=7)
+    _, b = _run(CELLS[0], seed=7 + 25)
+    _, c = _run(CELLS[0], seed=8)
     assert a["run"]["first_step"] == b["run"]["first_step"] == 7 * 40
     assert c["run"]["first_step"] == 8 * 40
     assert a["run"]["first"] == b["run"]["first"]
@@ -144,10 +137,30 @@ def test_a_broken_timed_path_is_not_correct(name, fault):
 
 
 def test_the_window_runs_whole_intervals_for_its_seconds():
-    cell = harness.load_cell("array2048_c16.auto")
-    r = harness.run(cell, 3, 2.0, False, device="cpu",
-                    sim_overrides=TINY["array2048_c16"], temporal=16)
+    cell = harness.load_cell(CELLS[0])
+    r = rehearse.run(cell, 3, 2.0)
     run = r["run"]
     assert run["window_s"] >= 2.0 and run["intervals"] >= 2
     assert r["metrics"]["mlups"]["value"] == pytest.approx(
         96 * 256 * run["steps"] / run["window_s"] / 1e6)
+
+
+def _renamed(name, config):
+    """The cell ``name`` built from its files, its configuration renamed
+    ``config`` and the cell ``config.<its traffic>``."""
+    cell = harness.load_cell(name)
+    traffic = name.split(".", 1)[1]
+    return dataclasses.replace(
+        cell, name=f"{config}.{traffic}",
+        config={**cell.config, "name": config})
+
+
+def test_a_configuration_under_a_new_name_rehearses():
+    """Nothing keys on a configuration's name: the first cell's files under
+    a name no test names run and pass as the cell does."""
+    cell = _renamed(CELLS[0], "unnamed_array_q7")
+    r = rehearse.run(cell, 2**31 + 11)
+    assert r["correct"] and r["failed"] == 0, r["checks"]
+    assert r["run"]["interval"] == 40
+    _, same = _run(CELLS[0])
+    assert r["run"]["first"] == same["run"]["first"]

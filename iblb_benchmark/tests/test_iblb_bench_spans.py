@@ -1,4 +1,4 @@
-"""The readers of the program's host spans (program_spans.py and the four
+"""The readers of the program's host spans (program_spans.py and the three
 metrics that read them) on synthetic records: the window cut at the device
 profile's steps, child spans subtracted, 0 for a leg that did not run,
 None without a device profile, without the recorder or without
@@ -14,7 +14,7 @@ from cuda_iblb_11_tpu_torch.utils.spans import Span
 from iblb_benchmark import harness, program_spans
 
 READERS = ("kinematics_host_us_per_step", "kstep_loop_host_us_per_step",
-           "single_step_host_us_per_step", "single_step_share")
+           "single_step_host_us_per_step")
 
 
 @pytest.fixture
@@ -67,13 +67,14 @@ def test_readers_cut_the_window_and_subtract_children(readers, monkeypatch):
     assert got == pytest.approx({
         "kinematics_host_us_per_step": 2 * 10.0 / 80,
         "kstep_loop_host_us_per_step": 2 * 52.0 / 80,
-        "single_step_host_us_per_step": 2 * 37.0 / 80,
-        "single_step_share": 16 / 80})
+        "single_step_host_us_per_step": 2 * 37.0 / 80})
     # the three host legs and run_chunk's own 1 us a call are its time
-    legs = sum(v for k, v in got.items() if k != "single_step_share")
-    assert legs + 2 * 1.0 / 80 == pytest.approx(2 * 100.0 / 80)
+    assert sum(got.values()) + 2 * 1.0 / 80 == pytest.approx(2 * 100.0 / 80)
     # one interval's window
-    assert _read(readers, _window(40))["single_step_share"] == 0.2
+    assert _read(readers, _window(40)) == pytest.approx({
+        "kinematics_host_us_per_step": 10.0 / 40,
+        "kstep_loop_host_us_per_step": 52.0 / 40,
+        "single_step_host_us_per_step": 37.0 / 40})
     # steps the spans do not cover exactly: nothing read
     assert set(_read(readers, _window(60)).values()) == {None}
     assert set(_read(readers, _window(200)).values()) == {None}
@@ -85,7 +86,7 @@ def test_a_leg_that_did_not_run_reads_zero(readers, monkeypatch):
     monkeypatch.setattr(spans, "records", lambda: list(records))
     got = _read(readers, _window(8))
     assert got["kstep_loop_host_us_per_step"] == 0.0
-    assert got["single_step_share"] == 1.0
+    assert got["single_step_host_us_per_step"] == pytest.approx(37.0 / 8)
     assert got["kinematics_host_us_per_step"] == pytest.approx(2.0 / 8)
 
 
@@ -113,8 +114,6 @@ def test_readers_on_a_run_chunk(readers):
     sim.run_chunk(sim.init_state(), 40)
     got = _read(readers, _window(40))
     assert spans.span("iblb.x") is spans.NULL      # the first read stops it
-    assert got["single_step_share"] == 0.2
     assert all(v > 0 for v in got.values())
     run = [r for r in spans.records() if r.name == "iblb.run_chunk"][0]
-    legs = sum(v for k, v in got.items() if k != "single_step_share")
-    assert legs <= run.ns / 1e3 / 40
+    assert sum(got.values()) <= run.ns / 1e3 / 40

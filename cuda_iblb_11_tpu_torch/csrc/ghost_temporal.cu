@@ -48,34 +48,46 @@
 // Wc cells in dynamic shared memory, a cell's nine values in a row (stride
 // 9, odd, so a warp's 32 columns hit 32 banks); the lag of two rows per
 // level lets every level of an iteration run between the same two
-// barriers, one __syncthreads per row.  Level 0 copies its input rows
-// three rows ahead into a stage ring of four rows (cp.async, one commit
-// group per row).  Level s is exact on columns [s, Wc - s) and on rows
-// [segment - kp + s, segment end + kp - s), so the output strip and
-// segment are exact, and every output cell is computed by the same
-// operations on the same values as K launches of the row kernel of
-// step.cuh would: bit for bit, ghost rows and garbage columns included.
-// Rows outside the block are zeros at every level, as there.  The seam's
-// injected pulls and the top wall are those of step.cuh, in its order.
-// The threads are three groups, each from a warp boundary: Wc - 2s for
-// each level s in 1..kp-1 (pull, collide), level 0's Wc loaders (copy,
-// collide) and the last level's Wt (pull, store), so every thread but the
-// last group's collides one cell per row.  The geometry is
-// ops/ghost_temporal.py's kstep_geometry, which both the wrapper and the
-// tests call: Wc as wide as the kernel's threads (1,024 in f32, 768 in
-// f64, its __launch_bounds__) and 227 KB of shared memory allow, and Ly
-// so that the strips times the segments fill the card's SMs in the fewest
-// row iterations.  At K = 16 (two passes of 8):
+// barriers, one barrier per row.  Level 0 copies its input rows three
+// rows ahead into a stage ring of four rows (cp.async, one commit group
+// per row).  Level s is exact on columns [s, Wc - s) and on rows [segment
+// - kp + s, segment end + kp - s), so the output strip and segment are
+// exact, and every output cell is computed by the same operations on the
+// same values as K launches of the row kernel of step.cuh would: bit for
+// bit.  Rows outside the block are zeros at every level, as there.  The
+// seam's injected pulls and the top wall are those of step.cuh, in its
+// order.  The threads are three roles, each from a warp boundary: Wc - 2s
+// for each level s in 1..kp-1 (pull, collide), level 0's Wc loaders
+// (copy, collide) and the last level's Wt (pull, store), so every thread
+// but the last role's collides one cell per row.
+// Per-row work outside the collide is what an issue-bound kernel spends
+// its time on, so each role runs its own row loop (one barrier a row,
+// barrier.sync: the three loops meet at it from three instructions),
+// unrolled by the rings' period of four: every ring row a step reads or
+// writes is one of four pointers the thread computed once, chosen at
+// compile time.  The segment's row count is rounded up to that period
+// (at most three more iterations, on rows no output needs).  A level's
+// step takes a fast path on the rows that are plain for it (j >= 0,
+// inside the block, neither the seam's nor the top wall's): nine pulls,
+// the flux if it is the flux lane's, the collide, nine stores.  The
+// others take the full path (the fix-ups, zeros outside the block).  The
+// loop-invariant values live in registers, not in the kernel's
+// parameters.  The geometry is ops/ghost_temporal.py's kstep_geometry,
+// which both the wrapper and the tests call: Wc as wide as the kernel's
+// threads (1,024 in f32, 768 in f64, its __launch_bounds__) and 227 KB of
+// shared memory allow, and Ly so that the strips times the segments fill
+// the card's SMs in the fewest row iterations.  At K = 16 (two passes of
+// 8):
 //   f32: Wc = 117, Wt = 101, 1,024 threads, (8 x 4 + 4) x 9 x 117 x 4 B =
-//        151,632 B of shared memory;
+//        151,632 B of shared memory, redundancy 1.213 at 2048^2;
 //   f64: Wc = 89, Wt = 73, 768 threads, (8 x 4 + 4) x 9 x 89 x 8 B =
-//        230,688 B.
+//        230,688 B, redundancy 1.301 at 2048^2.
 // Depth 8 is the choice for both types from probe_kstep.py's timings of
 // depths 4, 8 and 16 (PERF.md): one pass of 16 is slower (Wc = 73 in f32,
-// so more ghost columns per kept one), four of 4 about as fast as two of 8.
-// Each level of the flux lane writes (rho, mom_x) of its owned rows into
-// colbuf from the one CUDA block whose output strip and segment hold the
-// cell, and one launch of column_sum_kernel reduces the K columns in a
+// so more ghost columns per kept one), four of 4 about as fast as two of
+// 8.  Each level of the flux lane writes (rho, mom_x) of its owned rows
+// into colbuf from the one CUDA block whose output strip and segment hold
+// the cell, and one launch of column_sum_kernel reduces the K columns in a
 // fixed order (no atomics).  The JAX package keeps B7 a mirrored copy of
 // B4 to protect its TPU code generation (:1907-1921); here both are this
 // one driver.
@@ -89,15 +101,23 @@
 // wavefront's 3 kp rows of fill per segment): kstep_geometry counts the
 // factor, cells collided over cells kept, 1.213 for f32 at 2048^2, K = 16,
 // so the arithmetic bound with the redundancy is 0.115 ms.  What holds it
-// above that is instruction issue, not memory, occupancy or the barrier:
-// each collided cell costs the collide's instructions (its divide
-// included) and as many again of pulls, stores, indices and fix-ups.
-// probe_kstep.py times a build with the collide replaced by a copy, which
-// keeps most of the time, and a residency A/B: a CUDA block of 1,024
-// threads fills an SM's registers (64 a thread), so 32 warps a SM; split
-// into two 512-thread blocks (two barrier domains) the time per collided
-// cell is the same, and one 512-thread block a SM (16 warps) is only
-// 1.25x slower, not 2x (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// above that is instruction issue and the warps' wait at the row barrier,
+// not memory or occupancy.  A collided cell's collide is about 105 SASS
+// instructions (its divide and the two storages' selects included: the
+// storage stays a runtime flag, as in every kernel, since as a constant
+// it lets the compiler contract the collide's a*b - c*d the other way,
+// and B4 would no longer be bit for bit K launches of B3).  Around it a
+// level's fast step issues about 32 more (pulls, stores, the row's tests,
+// the barrier); level 0's step issues about 190 (its copies) and the last
+// level's about 70 (no collide).  probe_kstep.py reads the issue slots per
+// collided cell from the time, the SM clock and the collided cells: 247
+// at 2048^2 in f32, 163 with the collide a copy; so a third of the slots
+// find no warp ready, mostly at the barrier, where the warps done first
+// wait for the loaders' longer steps and each row's tail.  A CUDA block
+// of 1,024 threads fills an SM's registers (64 a thread), so 32 warps a
+// SM; split into two 512-thread blocks (two barrier domains) the time per
+// collided cell is about the same, and one 512-thread block a SM (16
+// warps) is 1.34x slower (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 // bf16 storage (the _bf16 entry, B4 on the JAX package's --dtype
 // bfloat16; B7 shares it, but no mesh runs bf16 yet): the block is read
 // and written as bf16 and computed in f32; the rings, the stage ring, the
@@ -129,8 +149,17 @@ struct KStepLimits<double> {
 };
 constexpr int RING = 4;     // rows per level's ring
 constexpr int STAGES = 4;   // level 0's input rows in flight (a power of 2)
+static_assert(STAGES == RING, "the stage rows follow the ring rows");
+constexpr int NO_ROW = -(1 << 30);   // a row index no block row equals
 
 __device__ constexpr int warps32(int n) { return (n + 31) / 32 * 32; }
+
+// One barrier for the whole CUDA block, reached from each role's own row
+// loop (barrier.sync without .aligned: the warps of the three roles wait
+// at three different instructions).
+__device__ __forceinline__ void block_barrier() {
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+}
 
 // The f arrays are untyped here: a pass reads them as Sin and writes them
 // as Sout (kstep_kernel's template arguments), the storage type of f on
@@ -155,9 +184,9 @@ struct KStepArgs {
   int kp;                 // levels of this pass
   int wc;                 // columns a strip loads
   int ly;                 // output rows a segment holds
-  int top_row;            // the top wall's row, or -1
+  int top_row;            // the top wall's row, or NO_ROW
   int top_noslip;
-  int inject_row;         // the seam row, or -1
+  int inject_row;         // the seam row, or NO_ROW
   int flux_x;             // the flux lane, or -1
   Coeffs<T> k;
 };
@@ -206,29 +235,35 @@ __device__ __forceinline__ void fetch_row(const KStepArgs<T>& a, int r,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// The post-stream values p of level s at global row r and column gx,
-// pulled from level s-1's ring: lo, mid and hi index the cells of this
-// column in its rows r - 1, r and r + 1 (a cell's nine values lie in a
-// row, its x-neighbours 9 values away); then the seam's and the top
-// wall's fix-ups of step.cuh, and (rho, mom_x) into colbuf[s-1] where the
-// cell is the flux lane's and `owner`.
+// The post-stream values p of a cell, pulled from the ring of the sub-step
+// before: lo, mid and hi point at its column's cells in rows r - 1, r and
+// r + 1 (a cell's nine values lie in a row, its x-neighbours 9 values
+// away).
 template <typename T>
-__device__ __forceinline__ void pull_level(const KStepArgs<T>& a,
-                                           const T* ring, int lo, int mid,
-                                           int hi, int s, int r, int gx,
-                                           bool owner, T (&p)[9]) {
+__device__ __forceinline__ void pull_plain(const T* lo, const T* mid,
+                                           const T* hi, T (&p)[9]) {
   // pull from (r - cy, x - cx)
-  p[0] = ring[mid];
-  p[1] = ring[mid - 9 + 1];
-  p[2] = ring[lo + 2];
-  p[3] = ring[mid + 9 + 3];
-  p[4] = ring[hi + 4];
-  p[5] = ring[lo - 9 + 5];
-  p[6] = ring[lo + 9 + 6];
-  p[7] = ring[hi + 9 + 7];
-  p[8] = ring[hi - 9 + 8];
-  const int xdim = a.xdim;
+  p[0] = mid[0];
+  p[1] = mid[-9 + 1];
+  p[2] = lo[2];
+  p[3] = mid[9 + 3];
+  p[4] = hi[4];
+  p[5] = lo[-9 + 5];
+  p[6] = lo[9 + 6];
+  p[7] = hi[9 + 7];
+  p[8] = hi[-9 + 8];
+}
+
+// pull_plain at block row r and column gx of sub-step s, then the seam's
+// and the top wall's fix-ups of step.cuh, in its order.
+template <typename T>
+__device__ __forceinline__ void pull_cell(const KStepArgs<T>& a,
+                                          const T* lo, const T* mid,
+                                          const T* hi, int s, int r, int gx,
+                                          T (&p)[9]) {
+  pull_plain(lo, mid, hi, p);
   if (r == a.inject_row) {  // the seam: pull (r - 1, x - cx) from bhalos
+    const int xdim = a.xdim;
     const T* inj = a.bhalos + (long long)(s - 1) * 9 * xdim;
     const int xm = gx == 0 ? xdim - 1 : gx - 1;
     const int xp = gx == xdim - 1 ? 0 : gx + 1;
@@ -237,46 +272,204 @@ __device__ __forceinline__ void pull_level(const KStepArgs<T>& a,
     p[6] = inj[6 * xdim + xp];
   }
   if (r == a.top_row) {
-    p[4] = ring[mid + 2];
+    p[4] = mid[2];
     if (a.top_noslip) {  // bounce-back
-      p[7] = ring[mid + 5];
-      p[8] = ring[mid + 6];
+      p[7] = mid[5];
+      p[8] = mid[6];
     } else {  // specular slip
-      p[8] = ring[mid + 5];
-      p[7] = ring[mid + 6];
+      p[8] = mid[5];
+      p[7] = mid[6];
     }
-  }
-  if (owner && gx == a.flux_x) {
-    T rho, mom_x, mom_y;
-    moments9(p, a.k.deviatoric, rho, mom_x, mom_y);
-    T* col = a.colbuf + (long long)(s - 1) * 2 * a.rows;
-    col[r] = rho;
-    col[a.rows + r] = mom_x;
   }
 }
 
-// Sin and Sout: the types the pass reads and writes f as.  Level 0 stages
-// its input rows with cp.async where Sin is T; a bf16 input (cp.async
-// copies 4, 8 or 16 bytes, not 2) is loaded row by row and widened in
-// registers, its latency hidden by the other levels' warps.
+// (rho, mom_x) of the post-stream values p of sub-step s at row r into
+// colbuf[s - 1]: the flux lane's column sums them.
+template <typename T>
+__device__ __forceinline__ void flux_cell(const KStepArgs<T>& a,
+                                          const T (&p)[9], int s, int r) {
+  T rho, mom_x, mom_y;
+  moments9(p, a.k.deviatoric, rho, mom_x, mom_y);
+  T* col = a.colbuf + (long long)(s - 1) * 2 * a.rows;
+  col[r] = rho;
+  col[a.rows + r] = mom_x;
+}
+
+template <typename T>
+__device__ __forceinline__ void put_cell(T* dst, const T (&f1)[9]) {
+#pragma unroll
+  for (int d = 0; d < 9; ++d) dst[d] = f1[d];
+}
+
+template <typename T>
+__device__ __forceinline__ void zero_cell(T* dst) {
+#pragma unroll
+  for (int d = 0; d < 9; ++d) dst[d] = T(0.0);
+}
+
+// The row loop every role runs: n_it iterations, a multiple of the ring's
+// period, one barrier after each, unrolled by that period so that each
+// iteration's ring rows are compile-time choices among four pointers
+// (ph = i mod 4).  The barrier count is the same in every role.
+template <typename Row>
+__device__ __forceinline__ void row_loop(int n_it, Row& row) {
+  for (int i = 0; i < n_it; i += RING) {
+    row.template step<0>(i);
+    block_barrier();
+    row.template step<1>(i + 1);
+    block_barrier();
+    row.template step<2>(i + 2);
+    block_barrier();
+    row.template step<3>(i + 3);
+    block_barrier();
+  }
+}
+
+// In every role a thread works on one column c of the strip; ring row j of
+// a level holds its rows j, j + 4, ... (rc = 9 wc values a row), and
+// slot[m] points at this thread's cell in the ring row that iteration i
+// with i mod 4 = m works on, so a step's ring rows are slot[ph] and its
+// neighbours slot[ph -+ 1 mod 4].  The segment's output rows are [y0,
+// y1); level 0 starts kp rows below them, at ybase, and level s works on
+// row ybase + i - 2 s.
+
+// Level 0: the input row ybase + i, copied STAGES - 1 rows ahead into this
+// thread's cell of the stage ring (stage_off values on from its ring 0
+// cell; no barrier: each loader reads only what it copied), collided into
+// ring 0.  kAsync: Sin is T, so cp.async stages it; a bf16 input
+// (cp.async copies 4, 8 or 16 bytes, not 2) is loaded row by row and
+// widened in registers, its latency hidden by the other roles' warps.
+template <typename T, typename Sin, bool kAsync>
+struct LoadRows {
+  const KStepArgs<T>& a;
+  const Coeffs<T>& k;
+  T* slot[RING];     // ring 0
+  int stage_off;     // the stage ring's cell, from ring 0's
+  int gx, ybase, end, rows;
+  bool active;
+
+  template <int kPh>
+  __device__ __forceinline__ void step(int i) {
+    if (!active) return;
+    const int r = ybase + i;
+    const bool in_block = r >= 0 && r < rows && r < end;
+    T f[9];
+    if constexpr (kAsync) {
+      fetch_row(a, r + STAGES - 1, end, gx,
+                slot[(kPh + STAGES - 1) & (RING - 1)] + stage_off);
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
+      const T* in = slot[kPh] + stage_off;
+#pragma unroll
+      for (int d = 0; d < 9; ++d) f[d] = in[d];
+    } else {
+#pragma unroll
+      for (int d = 0; d < 9; ++d) f[d] = T(0.0);
+      if (in_block) {
+        long long plane;
+        const Sin* row = row_src<Sin>(a, r, plane) + gx;
+#pragma unroll
+        for (int d = 0; d < 9; ++d) f[d] = load_f(row + d * plane);
+      }
+    }
+    T f1[9];
+    collide_cell<T, false>(f, T(0.0), T(0.0), k, f1);
+    if (in_block) {
+      put_cell(slot[kPh], f1);
+    } else {
+      zero_cell(slot[kPh]);
+    }
+  }
+};
+
+// Levels 1..kp-1: pull row j = i - 2 lev of the level below from its ring
+// rows j - 1, j, j + 1 (slot), collide, write ring row j of this level
+// (own_off values on); flux: this thread is the flux lane's output column,
+// whose rows [y0, y1) it sums.  The rows the fast path takes: j >= 0
+// inside the block, not the seam's or the top wall's; the rest take the
+// full path (step.cuh's fix-ups in its order, zeros outside the block).
+template <typename T>
+struct LevelRows {
+  const KStepArgs<T>& a;
+  const Coeffs<T>& k;
+  const T* slot[RING];   // ring lev - 1
+  int own_off;
+  int lev, gx, ybase, y0, y1, lo, n_fast, inject_row, top_row;
+  bool active, flux;
+
+  template <int kPh>
+  __device__ __forceinline__ void step(int i) {
+    const T* lo_row = slot[(kPh + 3) & (RING - 1)];
+    const T* mid = slot[kPh];
+    const T* hi = slot[(kPh + 1) & (RING - 1)];
+    T* dst = const_cast<T*>(mid) + own_off;
+    const int r = ybase + i - 2 * lev;
+    T p[9], f1[9];
+    if ((unsigned)(r - lo) < (unsigned)n_fast && r != inject_row
+        && r != top_row) {
+      pull_plain(lo_row, mid, hi, p);
+      if (flux && r >= y0 && r < y1) flux_cell(a, p, lev, r);
+      collide_cell<T, false>(p, T(0.0), T(0.0), k, f1);
+      put_cell(dst, f1);
+    } else if (active && r >= ybase) {   // row j >= 0 of this level
+      pull_cell(a, lo_row, mid, hi, lev, r, gx, p);
+      if (flux && r >= y0 && r < y1) flux_cell(a, p, lev, r);
+      collide_cell<T, false>(p, T(0.0), T(0.0), k, f1);
+      if (r >= 0 && r < a.rows) {
+        put_cell(dst, f1);
+      } else {
+        zero_cell(dst);
+      }
+    }
+  }
+};
+
+// Level kp: pull output row j = i - 2 kp of the segment from ring kp-1
+// and store it at out (this thread's column in row 0 of f_out).
+template <typename T, typename Sout>
+struct StoreRows {
+  const KStepArgs<T>& a;
+  const T* slot[RING];   // ring kp - 1
+  Sout* out;
+  long long out_plane;
+  int xdim, kp, gx, ybase, y0, y1;
+  bool active, flux;
+
+  template <int kPh>
+  __device__ __forceinline__ void step(int i) {
+    const int r = ybase + i - 2 * kp;
+    if (active && r >= y0 && r < y1) {
+      T p[9];
+      pull_cell(a, slot[(kPh + 3) & (RING - 1)], slot[kPh],
+                slot[(kPh + 1) & (RING - 1)], kp, r, gx, p);
+      if (flux) flux_cell(a, p, kp, r);
+      Sout* o = out + (long long)r * xdim;
+#pragma unroll
+      for (int d = 0; d < 9; ++d) store_f(o + d * out_plane, p[d]);
+    }
+  }
+};
+
+// Sin and Sout: the types the pass reads and writes f as.
 template <typename T, typename Sin, typename Sout>
 __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
     kstep_kernel(const KStepArgs<T> a) {
-  constexpr bool kAsync = sizeof(Sin) == sizeof(T);
   // shared memory: a ring [RING][wc][9] for each level 0..kp-1, then
   // level 0's stage ring [STAGES][wc][9]; a cell's nine values in a row
   // (an odd stride: a warp's 32 columns hit 32 banks)
   extern __shared__ __align__(16) unsigned char kstep_smem[];
   T* const ring = reinterpret_cast<T*>(kstep_smem);
-  const int wc = a.wc, kp = a.kp, xdim = a.xdim;
+  const int wc = a.wc, kp = a.kp, xdim = a.xdim, rows = a.rows;
   const int wt = wc - 2 * kp;
   const int x0 = blockIdx.x * wt;           // the strip's first column
   const int y0 = blockIdx.y * a.ly;         // the segment's output rows
-  const int y1 = min(y0 + a.ly, a.rows);
+  const int y1 = min(y0 + a.ly, rows);
   const int ybase = y0 - kp;                // level 0's first row
-  const int n_it = y1 - ybase + 2 * kp;
-  const int row_cells = 9 * wc;
-  const int level_cells = RING * row_cells;
+  // the rows level 0 to level kp sweep, rounded up to the ring's period
+  // (the last iterations then work on rows no output needs)
+  const int n_it = (y1 - ybase + 2 * kp + RING - 1) / RING * RING;
+  const int rc = 9 * wc;
+  const int level_cells = RING * rc;
+  const Coeffs<T> k = a.k;
 
   for (int e = threadIdx.x; e < kp * level_cells; e += blockDim.x) {
     ring[e] = T(0.0);
@@ -310,88 +503,49 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
   if (!active) c = kp;   // an idle thread: any column in range
   int gx = (x0 - kp + c) % xdim;
   if (gx < 0) gx += xdim;
-  // whether this column is the strip's output (the flux lane's owner)
-  const bool out_col = c >= kp && c < wc - kp && x0 + c - kp < xdim;
-  // this thread's cell in its level's ring, and in the ring it reads
-  const int own = lev * level_cells + 9 * c;
-  const int src = (lev - 1) * level_cells + 9 * c;
+  // whether this column is the strip's output and the flux lane
+  const bool flux = a.colbuf != nullptr && c >= kp && c < wc - kp
+                    && x0 + c - kp < xdim && gx == a.flux_x;
 
-  // level 0 copies its input rows STAGES - 1 rows ahead into its own cell
-  // of the stage ring (no barrier: each loader reads only what it copied)
-  T* const stage = ring + kp * level_cells + 9 * c;
+  constexpr bool kAsync = sizeof(Sin) == sizeof(T);
+  T* const own0 = ring + 9 * c;   // this column's cell, ring 0, row 0
+  const int stage_off = kp * level_cells;
   if constexpr (kAsync) {
     if (active && lev == 0) {
       for (int q = 0; q < STAGES - 1; ++q) {
-        fetch_row(a, ybase + q, y1 + kp, gx, stage + q * row_cells);
+        fetch_row(a, ybase + q, y1 + kp, gx, own0 + stage_off + q * rc);
       }
     }
   }
   __syncthreads();
-
-  for (int i = 0; i < n_it; ++i) {
-    if (active && lev == 0) {
-      const int r = ybase + i;
-      const bool in_block = r >= 0 && r < a.rows && r < y1 + kp;
-      T f[9];
-      if constexpr (kAsync) {
-        fetch_row(a, r + STAGES - 1, y1 + kp, gx,
-                  stage + ((i + STAGES - 1) & (STAGES - 1)) * row_cells);
-        asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1));
-        const T* in = stage + (i & (STAGES - 1)) * row_cells;
+  if (lev == 0) {
+    LoadRows<T, Sin, kAsync> row{a, k, {}, stage_off, gx, ybase, y1 + kp,
+                                 rows, active};
 #pragma unroll
-        for (int d = 0; d < 9; ++d) f[d] = in[d];
-      } else if (in_block) {
-        long long plane;
-        const Sin* row = row_src<Sin>(a, r, plane) + gx;
+    for (int m = 0; m < RING; ++m) row.slot[m] = own0 + m * rc;
+    row_loop(n_it, row);
+  } else if (lev < kp) {
+    // rows a fast step may take: j >= 0, inside the block
+    const int lo = max(ybase, 0);
+    LevelRows<T> row{a, k, {}, level_cells, lev, gx, ybase, y0, y1, lo,
+                     active ? rows - lo : 0, a.inject_row, a.top_row,
+                     active, flux};
 #pragma unroll
-        for (int d = 0; d < 9; ++d) f[d] = load_f(row + d * plane);
-      }
-      T f1[9];
-      if (in_block) {
-        collide_cell<T, false>(f, T(0.0), T(0.0), a.k, f1);
-      } else {
-#pragma unroll
-        for (int d = 0; d < 9; ++d) f1[d] = T(0.0);
-      }
-      T* dst = ring + own + (i & (RING - 1)) * row_cells;
-#pragma unroll
-      for (int d = 0; d < 9; ++d) dst[d] = f1[d];
-    } else if (active && lev < kp) {
-      const int j = i - 2 * lev;
-      const int r = ybase + j;
-      if (j >= 0) {
-        T f1[9];
-        if (r >= 0 && r < a.rows) {
-          T p[9];
-          pull_level(a, ring, src + ((j - 1) & (RING - 1)) * row_cells,
-                     src + (j & (RING - 1)) * row_cells,
-                     src + ((j + 1) & (RING - 1)) * row_cells, lev, r, gx,
-                     a.colbuf != nullptr && out_col && r >= y0 && r < y1,
-                     p);
-          collide_cell<T, false>(p, T(0.0), T(0.0), a.k, f1);
-        } else {
-#pragma unroll
-          for (int d = 0; d < 9; ++d) f1[d] = T(0.0);
-        }
-        T* dst = ring + own + (j & (RING - 1)) * row_cells;
-#pragma unroll
-        for (int d = 0; d < 9; ++d) dst[d] = f1[d];
-      }
-    } else if (active) {  // the last level: row i - 2 kp of the output
-      const int j = i - 2 * kp;
-      const int r = ybase + j;
-      if (r >= y0 && r < y1) {
-        T p[9];
-        pull_level(a, ring, src + ((j - 1) & (RING - 1)) * row_cells,
-                   src + (j & (RING - 1)) * row_cells,
-                   src + ((j + 1) & (RING - 1)) * row_cells, kp, r, gx,
-                   a.colbuf != nullptr, p);
-        Sout* o = (Sout*)a.f_out + (long long)r * xdim + (x0 + c - kp);
-#pragma unroll
-        for (int d = 0; d < 9; ++d) store_f(o + d * a.out_plane, p[d]);
-      }
+    for (int m = 0; m < RING; ++m) {
+      row.slot[m] = own0 + (lev - 1) * level_cells
+                    + ((m - 2 * lev) & (RING - 1)) * rc;
     }
-    __syncthreads();
+    row_loop(n_it, row);
+  } else {
+    StoreRows<T, Sout> row{a, {}, (Sout*)a.f_out + (x0 + c - kp),
+                           a.out_plane, xdim, kp, gx, ybase, y0, y1, active,
+                           flux};
+#pragma unroll
+    for (int m = 0; m < RING; ++m) {
+      row.slot[m] = own0 + (kp - 1) * level_cells
+                    + ((m - 2 * kp) & (RING - 1)) * rc;
+    }
+    row_loop(n_it, row);
   }
 }
 
@@ -437,9 +591,9 @@ int ghost_temporal(const void* bot, long long bot_plane, const void* f_loc,
   KStepArgs<T> a{};
   a.rows = rows;
   a.xdim = xdim;
-  a.top_row = is_top ? pad + yl - 1 : -1;
+  a.top_row = is_top ? pad + yl - 1 : NO_ROW;
   a.top_noslip = top_noslip;
-  a.inject_row = inject ? seam_row : -1;
+  a.inject_row = inject ? seam_row : NO_ROW;
   a.flux_x = flux_owned ? flux_lane : -1;
   a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
   T* tmp[2] = {(T*)tmp0, (T*)tmp1};

@@ -153,11 +153,18 @@ def _pass_geometry(rows, width, kp, dtype, n_sm):
             continue
         n_seg = -(-rows // ly)
         waves = -(-(n_strips * n_seg) // (n_sm * per_sm))
-        cost = waves * (ly + 3 * kp)
+        cost = waves * _row_iterations(ly, kp)
         if best is None or cost < best[0]:
             best = (cost, ly, n_seg)
     _, ly, n_seg = best
     return KStepPass(kp, wc, ly, threads, smem, n_strips, n_seg)
+
+
+def _row_iterations(ly, kp):
+    """The row iterations of a segment of ly output rows at depth kp: the
+    wavefront's ly + 3 kp, rounded up to the ring's period (the kernel's
+    loop is unrolled by it)."""
+    return -(-(ly + 3 * kp) // RING) * RING
 
 
 @functools.lru_cache(maxsize=None)
@@ -170,7 +177,8 @@ def _geometry(yl, pad, width, K, dtype, n_sm):
     run = 0
     for p in passes:
         for y0, y1 in p.segments(rows):
-            run += p.n_strips * (y1 - y0 + 3 * p.kp) * p.collides_per_row
+            run += p.n_strips * _row_iterations(y1 - y0, p.kp) \
+                * p.collides_per_row
     return KStepGeometry(rows, width, K, passes, run / (K * rows * width))
 
 

@@ -14,11 +14,12 @@ does nothing, in a stream of back-to-back launches: the floor under a
 kernel as small as B0 (no TPU kernel; an instrument).  Beside them the
 helpers the probe and validation modules share: ``require_card``,
 ``card_line`` (the card's name and power limit, which every record
-carries), ``device_ms``, ``l2_bytes`` (the card's L2 size, the budget
-of the budgeted band legs), the records' plumbing: ``run_header``
-(where a record was made) and ``write_record`` (one entry merged into a
-record under build/validation/), and ``beat_loop``, the one chunked beat
-loop of the validation routes (validate_flux.py, sweep_metachrony.py).
+carries), ``sm_clock_hz`` (the SM clock under a load), ``device_ms``,
+``l2_bytes`` (the card's L2 size, the budget of the budgeted band legs),
+the records' plumbing: ``run_header`` (where a record was made) and
+``write_record`` (one entry merged into a record under
+build/validation/), and ``beat_loop``, the one chunked beat loop of the
+validation routes (validate_flux.py, sweep_metachrony.py).
 
 Each wrapper launches its kernel for a float32 CUDA tensor (or raises) and
 counts the launch; for a CPU tensor it runs the plain torch version beside
@@ -37,6 +38,7 @@ import contextlib
 import datetime
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -77,6 +79,28 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz(fn, seconds=2.0) -> float:
+    """The SM clock while ``fn`` runs back to back on the card: the median
+    of nvidia-smi's clocks.sm, sampled every 100 ms; raises where
+    nvidia-smi gives no sample."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    samples = [float(v) for v in out.split()]
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no clocks.sm sample")
+    return statistics.median(samples) * 1e6
 
 
 def run_header(device) -> dict:

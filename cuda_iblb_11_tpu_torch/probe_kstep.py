@@ -23,6 +23,13 @@ deviatoric; and f64 raw).
    (cuobjdump), float and double, and the blocks per SM that the
    registers, threads and shared memory allow.
 5. torch.profiler's device time of one call, by kernel.
+6. The issue slots per collided cell: the SM clock under load
+   (ops/probes.sm_clock_hz, while the call runs back to back) times the slots an H100 SM
+   issues per cycle (4 schedulers x 32 lanes) times the SMs and the time
+   of a call, over the cells it collides (the redundancy times K x rows x
+   width), at depth 8 in f32, for the kernel and its collide-as-copy
+   build: the most instructions a collided cell can cost, and how many of
+   them lie outside the collide (the copy's share of the kernel's).
 Output: build/probe_kstep.json by default.  Where no card is visible it
 raises.
 """
@@ -52,9 +59,14 @@ DEPTHS = (8, 4, 16)
 # threads per CUDA block at most, at depth 8 in f32: the driver's, and
 # half (narrower strips, two blocks per SM)
 THREAD_CAPS = (1024, 512)
-# an H100 SM: registers, warps
+# an H100 SM: registers, warps, thread instructions issued per cycle (4
+# schedulers, one warp instruction of 32 lanes each)
 REGS_SM = 65_536
 WARPS_SM = 64
+SLOTS_SM = 4 * 32
+# the K-step kernel's float and double instantiations (T = Sin = Sout) in
+# a mangled name
+KERNEL_NAME = re.compile(r"kstep_kernelI([fd])\1\1E")
 
 
 def bulk_call(dtype, storage):
@@ -97,8 +109,19 @@ def time_geometry(call, block, reps, dtype, kb, threads=None) -> dict:
     return dict(ms=ms, hbm_passes=geo.hbm_passes,
                 redundancy=geo.redundancy, wc=p.wc, threads=p.threads,
                 smem_bytes=p.smem_bytes, blocks=p.n_strips * p.n_seg,
-                ps_per_collided_cell=ms * 1e9 / (
-                    geo.redundancy * K * geo.rows * geo.width))
+                collided_cells=collided_cells(geo),
+                ps_per_collided_cell=ms * 1e9 / collided_cells(geo))
+
+
+def collided_cells(geo) -> float:
+    """Cells a call collides: the redundancy times K x rows x width."""
+    return geo.redundancy * geo.K * geo.rows * geo.width
+
+
+def issue_slots_per_cell(ms, clock_hz, n_sm, cells) -> float:
+    """Thread instructions the SMs could issue in ms at clock_hz, per
+    collided cell: an upper bound on the instructions a cell costs."""
+    return ms * 1e-3 * clock_hz * n_sm * SLOTS_SM / cells
 
 
 def time_depths(call, block, reps, dtype=torch.float32) -> dict:
@@ -144,7 +167,7 @@ def kernel_build_info(lib) -> dict:
     info = {}
     log = lib.build_log.splitlines()
     for i, line in enumerate(log):
-        m = re.search(r"kstep_kernelI([fd])E", line)
+        m = KERNEL_NAME.search(line)
         if m and "Compiling entry" in line:
             for nxt in log[i + 1:i + 4]:
                 r = re.search(r"Used (\d+) registers", nxt)
@@ -158,7 +181,7 @@ def kernel_build_info(lib) -> dict:
     text = subprocess.run([tool, "-sass", lib.path], capture_output=True,
                           text=True, timeout=300).stdout
     for block in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.search(r"kstep_kernelI([fd])E", block.split("\n", 1)[0])
+        m = KERNEL_NAME.search(block.split("\n", 1)[0])
         if m:
             ops = [o.split(".")[0] for o in re.findall(
                 r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
@@ -209,6 +232,13 @@ def measure(reps: int = 20) -> dict:
     for kb in DEPTHS:
         rec["kernel"][kb]["share_without_collide"] = (
             rec["collide_as_copy"][kb]["ms"] / rec["kernel"][kb]["ms"])
+    clock = probes.sm_clock_hz(call)
+    n_sm = gt._sm_count(torch.device("cuda"))
+    rec["sm_clock_mhz"] = clock / 1e6
+    rec["issue_slots_per_collided_cell"] = {
+        name: issue_slots_per_cell(rec[name][8]["ms"], clock, n_sm,
+                                   rec[name][8]["collided_cells"])
+        for name in ("kernel", "collide_as_copy")}
     rec["residency"] = residency(call, block, reps, libs,
                                  rec["build"]["f"]["registers"])
     return rec
@@ -229,6 +259,11 @@ def main(argv=None) -> int:
               f"({row['share_without_collide']:.0%}); f64 "
               f"{rec['kernel_f64'][kb]['ms']:.4f} ms "
               f"({rec['kernel_f64'][kb]['hbm_passes']} passes)")
+    slots = rec["issue_slots_per_collided_cell"]
+    print(f"issue slots per collided cell (depth 8, f32, SM clock "
+          f"{rec['sm_clock_mhz']:.0f} MHz): {slots['kernel']:.1f}; with "
+          f"the collide a copy {slots['collide_as_copy']:.1f} "
+          f"({slots['collide_as_copy'] / slots['kernel']:.0%})")
     for t, b in rec["build"].items():
         print(f"kstep_kernel<{'float' if t == 'f' else 'double'}>: "
               f"{b.get('registers')} registers, "

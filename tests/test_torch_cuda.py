@@ -1037,6 +1037,46 @@ def test_b4_is_k_launches_of_b3(card, K, dtype, storage, top):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("edge", [0, -1])
+@pytest.mark.parametrize("ydim", [197, 230])
+@pytest.mark.parametrize("K", [5, 16])
+@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
+def test_b4_row_paths_are_k_launches_of_b3(card, K, ydim, edge, dtype,
+                                           storage, top):
+    # the K-step kernel's row loop, unrolled by its ring's period, takes a
+    # fast path on plain rows and the full one on the seam, the top wall
+    # and the rows outside the block; the flux lane sums on either.  Bulk
+    # heights whose segments end at more than one phase of the unrolled
+    # loop, K of one pass and of two, the flux column the first output
+    # column of the second strip (edge 0) or the last of the first (-1):
+    # f bit for bit K launches of B3, the flux the plain version's
+    cfg = SimConfig(c_num=6, c_space=48, ydim=ydim)
+    rows = ydim - cfg.force_band
+    geo = kstep_geometry(rows, 0, cfg.xdim, K, dtype)
+    assert {(y1 - y0 + 3 * p.kp) % 4 for p in geo.passes
+            for y0, y1 in p.segments(rows)} != {0}
+    flux_x = geo.passes[0].wt + edge
+    cfg = dataclasses.replace(cfg, flux_column_offset=cfg.xdim - flux_x)
+    assert cfg.flux_x == flux_x
+    band = cfg.force_band
+    f, _ = random_inputs(cfg, storage, dtype, card, seed=K + ydim)
+    bh = (f[None, :, band - 1] * (1.0 + 1e-3 * torch.arange(
+        K, device=card, dtype=dtype)[:, None, None])).contiguous()
+    walls = ref.WallSpec(top=top)
+    b4, flux = temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split",
+                             storage)
+    cur = f[:, band:]
+    for s in range(K):
+        cur = sharded_fused_substep((band, 0, 1), cur, None, bh[s], None,
+                                    cfg, walls, "trt_split", storage)[0]
+    want = temporal_bulk_reference(f[:, band:], bh, cfg, walls, "trt_split",
+                                   storage)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(b4, cur)
+    assert rel_l2(flux, want) <= GATE[dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K", [8, 16])
 def test_b7_nan_ghosts_keep_owned_cells(card, K):
     # NaN in the ghost rows (sealed: the seam at the bottom owned row, the

@@ -65,7 +65,9 @@ def test_kstep_geometry_fits_shared_memory(K, dtype):
 
 def test_kstep_geometry_of_the_main_paths():
     # B4 at 2048^2, K = 16: two passes of 8, strips of 101 (f32) and 73
-    # (f64) columns; the redundancy the kernel header states
+    # (f64) columns; the redundancy the kernel header states (segments of
+    # 320 (f32) and 214 (f64) rows, ly + 3 kp row iterations rounded up to
+    # the ring's period of 4: 344 and 240)
     f32 = kstep_geometry(1920, 0, 2048, 16, torch.float32)
     f64 = kstep_geometry(1920, 0, 2048, 16, torch.float64)
     assert [(p.kp, p.wc, p.threads, p.smem_bytes) for p in f32.passes] == \
@@ -73,7 +75,7 @@ def test_kstep_geometry_of_the_main_paths():
     assert [(p.kp, p.wc, p.threads, p.smem_bytes) for p in f64.passes] == \
         [(8, 89, 768, 230_688)] * 2
     assert round(f32.redundancy, 3) == 1.213
-    assert round(f64.redundancy, 3) == 1.292
+    assert round(f64.redundancy, 3) == 1.301
     # at most one wave short of filling 132 SMs
     p = f32.passes[0]
     assert p.n_strips * p.n_seg <= 132

@@ -47,26 +47,30 @@
 // stores it instead).  Each level's ring holds four post-collision rows of
 // Wc cells in dynamic shared memory, a cell's nine values in a row (stride
 // 9, odd, so a warp's 32 columns hit 32 banks); the lag of two rows per
-// level lets every level of an iteration run between the same two
-// barriers, one barrier per row.  Level 0 copies its input rows three
-// rows ahead into a stage ring of four rows (cp.async, one commit group
-// per row).  Level s is exact on columns [s, Wc - s) and on rows [segment
-// - kp + s, segment end + kp - s), so the output strip and segment are
-// exact, and every output cell is computed by the same operations on the
-// same values as K launches of the row kernel of step.cuh would: bit for
-// bit.  Rows outside the block are zeros at every level, as there.  The
-// seam's injected pulls and the top wall are those of step.cuh, in its
-// order.  The threads are three roles, each from a warp boundary: Wc - 2s
-// for each level s in 1..kp-1 (pull, collide), level 0's Wc loaders
-// (copy, collide) and the last level's Wt (pull, store), so every thread
-// but the last role's collides one cell per row.
+// level lets level s pull rows j - 1, j, j + 1 while level s - 1 writes
+// row j + 2 into the fourth.  The levels meet at mbarriers in shared
+// memory, not at a barrier of the whole CUDA block: each waits only for
+// its two neighbours' last iteration (struct Sync), so the warps of an SM
+// leave their waits at their own times.  Level 0 copies its input rows
+// three rows ahead into a stage ring of four rows (cp.async, one commit
+// group per row).  Level s is exact on columns [s, Wc - s) and on rows
+// [segment - kp + s, segment end + kp - s), so the output strip and
+// segment are exact, and every output cell is computed by the same
+// operations on the same values as K launches of the row kernel of
+// step.cuh would: bit for bit.  Rows outside the block are zeros at
+// every level, as there.  The seam's injected pulls and the top wall are
+// those of step.cuh, in its order.  The threads are three roles, each
+// from a warp boundary: Wc - 2s for each level s in 1..kp-1 (pull,
+// collide), level 0's Wc loaders (copy, collide) and the last level's Wt
+// (pull, store), so every thread but the last role's collides one cell
+// per row.
 // Per-row work outside the collide is what an issue-bound kernel spends
-// its time on, so each role runs its own row loop (one barrier a row,
-// barrier.sync: the three loops meet at it from three instructions),
-// unrolled by the rings' period of four: every ring row a step reads or
-// writes is one of four pointers the thread computed once, chosen at
-// compile time.  The segment's row count is rounded up to that period
-// (at most three more iterations, on rows no output needs).  A level's
+// its time on, so each role runs its own row loop (per row: its waits,
+// its step, one arrival), unrolled by the rings' period of four: every
+// ring row a step reads or writes, and every mbarrier it waits or arrives
+// on, is one of four the thread computed once, chosen at compile time.
+// The segment's row count is rounded up to that period (at most three
+// more iterations, on rows no output needs).  A level's
 // step takes a fast path on the rows that are plain for it (j >= 0,
 // inside the block, neither the seam's nor the top wall's): nine pulls,
 // the flux if it is the flux lane's, the collide, nine stores.  The
@@ -78,10 +82,11 @@
 // shared memory allow, and Ly so that the strips times the segments fill
 // the card's SMs in the fewest row iterations.  At K = 16 (two passes of
 // 8):
-//   f32: Wc = 117, Wt = 101, 1,024 threads, (8 x 4 + 4) x 9 x 117 x 4 B =
-//        151,632 B of shared memory, redundancy 1.213 at 2048^2;
-//   f64: Wc = 89, Wt = 73, 768 threads, (8 x 4 + 4) x 9 x 89 x 8 B =
-//        230,688 B, redundancy 1.301 at 2048^2.
+//   f32: Wc = 117, Wt = 101, 1,024 threads, (8 x 4 + 4) x 9 x 117 x 4 B
+//        and 288 B of mbarriers = 151,920 B of shared memory, redundancy
+//        1.213 at 2048^2;
+//   f64: Wc = 89, Wt = 73, 768 threads, (8 x 4 + 4) x 9 x 89 x 8 + 288 B =
+//        230,976 B, redundancy 1.301 at 2048^2.
 // Depth 8 is the choice for both types from probe_kstep.py's timings of
 // depths 4, 8 and 16 (PERF.md): one pass of 16 is slower (Wc = 73 in f32,
 // so more ghost columns per kept one), four of 4 about as fast as two of
@@ -101,23 +106,34 @@
 // wavefront's 3 kp rows of fill per segment): kstep_geometry counts the
 // factor, cells collided over cells kept, 1.213 for f32 at 2048^2, K = 16,
 // so the arithmetic bound with the redundancy is 0.115 ms.  What holds it
-// above that is instruction issue and the warps' wait at the row barrier,
-// not memory or occupancy.  A collided cell's collide is about 105 SASS
-// instructions (its divide and the two storages' selects included: the
-// storage stays a runtime flag, as in every kernel, since as a constant
-// it lets the compiler contract the collide's a*b - c*d the other way,
-// and B4 would no longer be bit for bit K launches of B3).  Around it a
-// level's fast step issues about 32 more (pulls, stores, the row's tests,
-// the barrier); level 0's step issues about 190 (its copies) and the last
-// level's about 70 (no collide).  probe_kstep.py reads the issue slots per
-// collided cell from the time, the SM clock and the collided cells: 247
-// at 2048^2 in f32, 163 with the collide a copy; so a third of the slots
-// find no warp ready, mostly at the barrier, where the warps done first
-// wait for the loaders' longer steps and each row's tail.  A CUDA block
-// of 1,024 threads fills an SM's registers (64 a thread), so 32 warps a
-// SM; split into two 512-thread blocks (two barrier domains) the time per
-// collided cell is about the same, and one 512-thread block a SM (16
-// warps) is 1.34x slower (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// above that is instruction issue and the warps' waits, not memory or
+// occupancy.  A collided cell's collide is about 105 SASS instructions
+// (its divide and the two storages' selects included: the storage stays a
+// runtime flag, as in every kernel, since as a constant it lets the
+// compiler contract the collide's a*b - c*d the other way, and B4 would
+// no longer be bit for bit K launches of B3).  Around it a level's fast
+// step issues about 32 more (pulls, stores, the row's tests) and its
+// mbarriers about 5 (two try-waits with their branches, one arrival; a
+// warp of two levels waits twice as often); level 0's step issues about
+// 190 (its copies) and the last level's about 70 (no collide).
+// probe_kstep.py reads the issue slots per collided cell from the time,
+// the SM clock and the collided cells: 229 at 2048^2 in f32 (149 with the
+// collide a copy), against 247 (163) when every row ended at a barrier of
+// the whole block (the design before the mbarriers: the warps left it in
+// lockstep, and those done first waited for the loaders' longer steps and
+// each row's tail); per call 0.52 ms against 0.56 at 2048^2, 7.7 against
+// 8.3 ms at 8192^2, 0.84 against 0.90 in f64 at 2048^2 (NVIDIA H100 80GB
+// HBM3 at 700 W; the two builds in turns, PERF.md).  Measured slower and
+// not kept: each lane of a warp of two levels waiting for its own level's
+// neighbours alone (the lanes part at the wait, and the step runs once
+// for each part: 0.65 ms), rings of six rows in f32 (a level may run
+// three rows ahead of the one above it, but the larger unrolled loop is
+// slower: 0.57 ms), one arrival a warp after a __syncwarp, one waiting
+// lane a warp, polling with test_wait, the write's wait moved after the
+// collide, and the full row path out of line.  A CUDA block of 1,024
+// threads is 32 warps a SM (58 registers a thread in f32); two 512-thread
+// blocks a SM are 7% slower per collided cell, one 512-thread block a SM
+// (16 warps) 1.29x slower than two.
 // bf16 storage (the _bf16 entry, B4 on the JAX package's --dtype
 // bfloat16; B7 shares it, but no mesh runs bf16 yet): the block is read
 // and written as bf16 and computed in f32; the rings, the stage ring, the
@@ -135,7 +151,7 @@
 
 namespace {
 
-// threads per CUDA block at most (registers: 64 a thread in f32, 85 in
+// threads per CUDA block at most (registers: 58 a thread in f32, 80 in
 // f64); ops/ghost_temporal.py's MAX_THREADS mirrors these
 template <typename T>
 struct KStepLimits;
@@ -154,11 +170,33 @@ constexpr int NO_ROW = -(1 << 30);   // a row index no block row equals
 
 __device__ constexpr int warps32(int n) { return (n + 31) / 32 * 32; }
 
-// One barrier for the whole CUDA block, reached from each role's own row
-// loop (barrier.sync without .aligned: the warps of the three roles wait
-// at three different instructions).
-__device__ __forceinline__ void block_barrier() {
-  asm volatile("barrier.sync 0;\n" ::: "memory");
+// The mbarriers between neighbouring levels (shared memory, 8 bytes each,
+// addressed as 32-bit shared-space addresses).  arrive: release the
+// thread's earlier shared-memory reads and writes to the threads that wait
+// on the phase it completes; wait: until the phase of the given parity has
+// completed, then acquire them (a barrier in phase 0 has completed the
+// phase of parity 1 before it, so that wait passes at once).
+__device__ __forceinline__ void bar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra LAB_WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // The f arrays are untyped here: a pass reads them as Sin and writes them
@@ -307,21 +345,74 @@ __device__ __forceinline__ void zero_cell(T* dst) {
   for (int d = 0; d < 9; ++d) dst[d] = T(0.0);
 }
 
+// The synchronisation of one role (level s: 0 the loaders, kp the
+// stores), in place of a barrier for the whole CUDA block each row.
+// done[s] holds RING mbarriers, one a slot of RING iterations, and counts
+// level s's threads; each of them arrives on done[s][i mod RING] when it
+// has finished iteration i: its ring row of that iteration written, its
+// pulls from the ring below done.  Before iteration i it waits for
+//   below (s >= 1): done[s - 1] of iteration i - 1, where level s - 1
+//     wrote row j + 1, the newest of the rows j - 1, j, j + 1 that level s
+//     pulls (the older two were waited for before);
+//   above (s < kp): done[s + 1] of iteration i - 1, where level s + 1
+//     pulled for the last time from ring row j - 4, the one that
+//     iteration i overwrites.
+// So no level waits for more than its neighbours' last iteration, and the
+// levels' warps leave their waits at their own times, not in lockstep.
+// Each wait strictly precedes its iteration, so nothing waits in a cycle;
+// and no level can finish a slot's next phase before its neighbours have
+// waited on this one, so a wait by parity sees the phase it means.  par is
+// the parity of iteration i's round, i / 4; the wait of iteration 0 is for
+// the phase before the barriers' first, which passes at once.
+template <bool kBelow, bool kAbove>
+struct Sync {
+  unsigned below, above, own;   // done[s - 1], done[s + 1], done[s]
+  // A warp that holds two levels (s and s + 1: levels 1..kp-1 share
+  // warps) waits for what either waits for, below and below + 1, above
+  // and above + 1 of its lower level, so that its lanes never part at a
+  // wait: lanes parted there ran the rest of the step twice.
+  bool two;
+
+  template <int kPh>
+  __device__ __forceinline__ void wait(unsigned par) const {
+    // done[.][(i - 1) mod 4] in round (i - 1) / 4
+    const unsigned slot = 8 * ((kPh + RING - 1) & (RING - 1));
+    const unsigned p = kPh == 0 ? par ^ 1 : par;
+    if constexpr (kBelow) {
+      bar_wait(below + slot, p);
+      if (two) bar_wait(below + 8 * RING + slot, p);
+    }
+    if constexpr (kAbove) {
+      bar_wait(above + slot, p);
+      if (two) bar_wait(above + 8 * RING + slot, p);
+    }
+  }
+
+  template <int kPh>
+  __device__ __forceinline__ void arrive() const {
+    bar_arrive(own + 8 * kPh);
+  }
+};
+
+template <int kPh, typename Row>
+__device__ __forceinline__ void sync_step(Row& row, int i, unsigned par) {
+  row.sync.template wait<kPh>(par);
+  row.template step<kPh>(i);
+  row.sync.template arrive<kPh>();
+}
+
 // The row loop every role runs: n_it iterations, a multiple of the ring's
-// period, one barrier after each, unrolled by that period so that each
-// iteration's ring rows are compile-time choices among four pointers
-// (ph = i mod 4).  The barrier count is the same in every role.
+// period, unrolled by that period so that each iteration's ring rows and
+// mbarriers are compile-time choices among four (ph = i mod 4).
 template <typename Row>
 __device__ __forceinline__ void row_loop(int n_it, Row& row) {
-  for (int i = 0; i < n_it; i += RING) {
-    row.template step<0>(i);
-    block_barrier();
-    row.template step<1>(i + 1);
-    block_barrier();
-    row.template step<2>(i + 2);
-    block_barrier();
-    row.template step<3>(i + 3);
-    block_barrier();
+  static_assert(RING == 4, "the loop is unrolled by the ring's period");
+  unsigned par = 0;
+  for (int i = 0; i < n_it; i += RING, par ^= 1) {
+    sync_step<0>(row, i, par);
+    sync_step<1>(row, i + 1, par);
+    sync_step<2>(row, i + 2, par);
+    sync_step<3>(row, i + 3, par);
   }
 }
 
@@ -335,7 +426,7 @@ __device__ __forceinline__ void row_loop(int n_it, Row& row) {
 
 // Level 0: the input row ybase + i, copied STAGES - 1 rows ahead into this
 // thread's cell of the stage ring (stage_off values on from its ring 0
-// cell; no barrier: each loader reads only what it copied), collided into
+// cell; no mbarrier: each loader reads only what it copied), collided into
 // ring 0.  kAsync: Sin is T, so cp.async stages it; a bf16 input
 // (cp.async copies 4, 8 or 16 bytes, not 2) is loaded row by row and
 // widened in registers, its latency hidden by the other roles' warps.
@@ -343,14 +434,13 @@ template <typename T, typename Sin, bool kAsync>
 struct LoadRows {
   const KStepArgs<T>& a;
   const Coeffs<T>& k;
+  Sync<false, true> sync;
   T* slot[RING];     // ring 0
   int stage_off;     // the stage ring's cell, from ring 0's
   int gx, ybase, end, rows;
-  bool active;
 
   template <int kPh>
   __device__ __forceinline__ void step(int i) {
-    if (!active) return;
     const int r = ybase + i;
     const bool in_block = r >= 0 && r < rows && r < end;
     T f[9];
@@ -391,10 +481,11 @@ template <typename T>
 struct LevelRows {
   const KStepArgs<T>& a;
   const Coeffs<T>& k;
+  Sync<true, true> sync;
   const T* slot[RING];   // ring lev - 1
   int own_off;
   int lev, gx, ybase, y0, y1, lo, n_fast, inject_row, top_row;
-  bool active, flux;
+  bool flux;
 
   template <int kPh>
   __device__ __forceinline__ void step(int i) {
@@ -410,7 +501,7 @@ struct LevelRows {
       if (flux && r >= y0 && r < y1) flux_cell(a, p, lev, r);
       collide_cell<T, false>(p, T(0.0), T(0.0), k, f1);
       put_cell(dst, f1);
-    } else if (active && r >= ybase) {   // row j >= 0 of this level
+    } else if (r >= ybase) {   // row j >= 0 of this level
       pull_cell(a, lo_row, mid, hi, lev, r, gx, p);
       if (flux && r >= y0 && r < y1) flux_cell(a, p, lev, r);
       collide_cell<T, false>(p, T(0.0), T(0.0), k, f1);
@@ -428,16 +519,17 @@ struct LevelRows {
 template <typename T, typename Sout>
 struct StoreRows {
   const KStepArgs<T>& a;
+  Sync<true, false> sync;
   const T* slot[RING];   // ring kp - 1
   Sout* out;
   long long out_plane;
   int xdim, kp, gx, ybase, y0, y1;
-  bool active, flux;
+  bool flux;
 
   template <int kPh>
   __device__ __forceinline__ void step(int i) {
     const int r = ybase + i - 2 * kp;
-    if (active && r >= y0 && r < y1) {
+    if (r >= y0 && r < y1) {
       T p[9];
       pull_cell(a, slot[(kPh + 3) & (RING - 1)], slot[kPh],
                 slot[(kPh + 1) & (RING - 1)], kp, r, gx, p);
@@ -449,16 +541,24 @@ struct StoreRows {
   }
 };
 
+// Bytes of a pass's mbarriers ahead of its rings: done[0..kp], RING each,
+// rounded up to 16 (the rings' alignment).
+__host__ __device__ constexpr int kstep_bar_bytes(int kp) {
+  return ((kp + 1) * RING * 8 + 15) / 16 * 16;
+}
+
 // Sin and Sout: the types the pass reads and writes f as.
 template <typename T, typename Sin, typename Sout>
 __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
     kstep_kernel(const KStepArgs<T> a) {
-  // shared memory: a ring [RING][wc][9] for each level 0..kp-1, then
-  // level 0's stage ring [STAGES][wc][9]; a cell's nine values in a row
-  // (an odd stride: a warp's 32 columns hit 32 banks)
+  // shared memory: the mbarriers done[kp + 1][RING], then a ring
+  // [RING][wc][9] for each level 0..kp-1, then level 0's stage ring
+  // [STAGES][wc][9]; a cell's nine values in a row (an odd stride: a
+  // warp's 32 columns hit 32 banks)
   extern __shared__ __align__(16) unsigned char kstep_smem[];
-  T* const ring = reinterpret_cast<T*>(kstep_smem);
   const int wc = a.wc, kp = a.kp, xdim = a.xdim, rows = a.rows;
+  T* const ring = reinterpret_cast<T*>(kstep_smem + kstep_bar_bytes(kp));
+  const unsigned bars = (unsigned)__cvta_generic_to_shared(kstep_smem);
   const int wt = wc - 2 * kp;
   const int x0 = blockIdx.x * wt;           // the strip's first column
   const int y0 = blockIdx.y * a.ly;         // the segment's output rows
@@ -477,9 +577,20 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
   // this thread's role, each group starting at a warp: the columns [s, wc
   // - s) of levels s = 1..kp-1 (pull, collide), level 0's wc loaders
   // (copy, collide) and the last level's wt columns [kp, wc - kp) (pull,
-  // store); kstep_geometry counts the same threads
+  // store), those of the strip's output; kstep_geometry counts the same
+  // threads.  The others leave after the set-up.
   const int n_lev = warps32((kp - 1) * wc - kp * (kp - 1));
   const int n_load = warps32(wc);
+  const int n_store = min(wt, xdim - x0);
+  if (threadIdx.x == 0) {   // each level's threads arrive on its done[s]
+    for (int s = 0; s <= kp; ++s) {
+      const int count = s == 0 ? wc : s < kp ? wc - 2 * s : n_store;
+      for (int m = 0; m < RING; ++m) {
+        bar_init(bars + 8 * (s * RING + m), count);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   int lev, c = threadIdx.x;
   bool active;
   if (c < n_lev) {
@@ -497,10 +608,10 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
     active = c < wc;
   } else {
     lev = kp;
-    c += kp - n_lev - n_load;
-    active = c < wc - kp && x0 + c - kp < xdim;
+    c -= n_lev + n_load;
+    active = c < n_store;
+    c += kp;
   }
-  if (!active) c = kp;   // an idle thread: any column in range
   int gx = (x0 - kp + c) % xdim;
   if (gx < 0) gx += xdim;
   // whether this column is the strip's output and the flux lane
@@ -517,19 +628,26 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
       }
     }
   }
+  // the lowest and highest level of this warp's working lanes
+  const int lev_lo = __reduce_min_sync(0xffffffffu, active ? lev : kp);
+  const int lev_hi = __reduce_max_sync(0xffffffffu, active ? lev : 0);
   __syncthreads();
+  if (!active) return;
+  const Sync<true, true> sync{bars + 8 * RING * (lev_lo - 1),
+                              bars + 8 * RING * (lev_lo + 1),
+                              bars + 8 * RING * lev, lev_hi != lev_lo};
   if (lev == 0) {
-    LoadRows<T, Sin, kAsync> row{a, k, {}, stage_off, gx, ybase, y1 + kp,
-                                 rows, active};
+    LoadRows<T, Sin, kAsync> row{a, k, {sync.below, sync.above, sync.own,
+                                        false},
+                                 {}, stage_off, gx, ybase, y1 + kp, rows};
 #pragma unroll
     for (int m = 0; m < RING; ++m) row.slot[m] = own0 + m * rc;
     row_loop(n_it, row);
   } else if (lev < kp) {
     // rows a fast step may take: j >= 0, inside the block
     const int lo = max(ybase, 0);
-    LevelRows<T> row{a, k, {}, level_cells, lev, gx, ybase, y0, y1, lo,
-                     active ? rows - lo : 0, a.inject_row, a.top_row,
-                     active, flux};
+    LevelRows<T> row{a, k, sync, {}, level_cells, lev, gx, ybase, y0, y1,
+                     lo, rows - lo, a.inject_row, a.top_row, flux};
 #pragma unroll
     for (int m = 0; m < RING; ++m) {
       row.slot[m] = own0 + (lev - 1) * level_cells
@@ -537,9 +655,9 @@ __global__ void __launch_bounds__(KStepLimits<T>::kThreads)
     }
     row_loop(n_it, row);
   } else {
-    StoreRows<T, Sout> row{a, {}, (Sout*)a.f_out + (x0 + c - kp),
-                           a.out_plane, xdim, kp, gx, ybase, y0, y1, active,
-                           flux};
+    StoreRows<T, Sout> row{a, {sync.below, sync.above, sync.own, false},
+                           {}, (Sout*)a.f_out + (x0 + c - kp), a.out_plane,
+                           xdim, kp, gx, ybase, y0, y1, flux};
 #pragma unroll
     for (int m = 0; m < RING; ++m) {
       row.slot[m] = own0 + (kp - 1) * level_cells
@@ -555,7 +673,8 @@ int launch_pass(const KStepArgs<T>& a, int threads, cudaStream_t st) {
       || threads > KStepLimits<T>::kThreads) {
     return (int)cudaErrorInvalidValue;
   }
-  int smem = (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);
+  int smem = kstep_bar_bytes(a.kp)
+             + (a.kp * RING + STAGES) * 9 * a.wc * (int)sizeof(T);
 #ifdef IBLB_KSTEP_MIN_SMEM
   // probe_kstep.py's residency A/B (ops/_kernels.VARIANTS): each block
   // asks for at least this much, so that fewer blocks fit on an SM

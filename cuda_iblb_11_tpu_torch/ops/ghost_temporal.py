@@ -133,17 +133,24 @@ def _threads(kp, wc):
             + _warps32(wc - 2 * kp))
 
 
+def bar_bytes(kp):
+    """The shared memory of a pass's mbarriers: RING for each of its kp + 1
+    levels (the stores the last), 8 bytes each, rounded up to 16."""
+    return -(-(kp + 1) * RING * 8 // 16) * 16
+
+
 def _pass_geometry(rows, width, kp, dtype, n_sm):
     """One pass of depth kp; dtype is the compute type."""
     es = torch.empty((), dtype=dtype).element_size()
-    wc = min(SMEM_BLOCK // ((RING * kp + STAGES) * 9 * es), width + 2 * kp)
+    wc = min((SMEM_BLOCK - bar_bytes(kp)) // ((RING * kp + STAGES) * 9 * es),
+             width + 2 * kp)
     while wc > 2 * kp and _threads(kp, wc) > MAX_THREADS[dtype]:
         wc -= 1
     if wc <= 2 * kp:
         raise ValueError(f"K-step pass of depth {kp} does not fit a CUDA "
                          f"block in {dtype}")
     threads = _threads(kp, wc)
-    smem = (RING * kp + STAGES) * 9 * wc * es
+    smem = bar_bytes(kp) + (RING * kp + STAGES) * 9 * wc * es
     n_strips = -(-width // (wc - 2 * kp))
     per_sm = max(1, min(THREADS_SM // threads, SMEM_SM // (smem + 1024)))
     best = None

@@ -3,6 +3,7 @@ its bound, on B4 at 2048^2, K = 16 (chip_smoke.py's timed case: f32
 deviatoric; and f64 raw).
 
     python -m cuda_iblb_11_tpu_torch.probe_kstep [--reps N] [--json PATH]
+        [--against DIR]
 
 1. The kernel as built, timed (ops/probes.device_ms: CUDA events after a
    spin kernel) at pass depths 8 (the driver's), 4 and 16, f32 and f64.
@@ -12,24 +13,32 @@ deviatoric; and f64 raw).
    kernel, the identity-collide A/B of scripts/probe_vpu.py:168-219).
 3. Residency, at depth 8 in f32: the driver's CUDA blocks (1,024
    threads, one per SM) against blocks of at most 512 threads (narrower
-   strips, two per SM: the same 32 warps in two barrier domains), and each
-   again from the build whose blocks ask for 120 KiB of shared memory
+   strips, two per SM: the same 32 warps in two blocks), and each again
+   from the build whose blocks ask for 120 KiB of shared memory
    (VARIANTS["one_block_per_sm"]), so that one block runs per SM.  If the
    512-thread blocks take about twice as long one per SM as two per SM,
    an SM does two blocks' rows in the time of one: the row iteration
-   waits on latency and the barrier, not on instruction issue.  If about
-   as long, the SM's issue slots are full.
+   waits on latency, not on instruction issue.  If about as long, the
+   SM's issue slots are full.
 4. The kernel's registers (ptxas) and its SASS instruction mix
-   (cuobjdump), float and double, and the blocks per SM that the
+   (cuobjdump), float and double, its mbarrier instructions (SYNCS: arrive
+   and try-wait) per role's row step, and the blocks per SM that the
    registers, threads and shared memory allow.
 5. torch.profiler's device time of one call, by kernel.
 6. The issue slots per collided cell: the SM clock under load
-   (ops/probes.sm_clock_hz, while the call runs back to back) times the slots an H100 SM
-   issues per cycle (4 schedulers x 32 lanes) times the SMs and the time
-   of a call, over the cells it collides (the redundancy times K x rows x
-   width), at depth 8 in f32, for the kernel and its collide-as-copy
-   build: the most instructions a collided cell can cost, and how many of
-   them lie outside the collide (the copy's share of the kernel's).
+   (ops/probes.sm_clock_hz, while the call runs back to back) times the
+   slots an H100 SM issues per cycle (4 schedulers x 32 lanes) times the
+   SMs and the time of a call, over the cells it collides (the redundancy
+   times K x rows x width), at depth 8 in f32, for the kernel and its
+   collide-as-copy build: the most instructions a collided cell can cost,
+   and how many of them lie outside the collide (the copy's share of the
+   kernel's).
+7. With --against DIR (another checkout, e.g. `git archive` of the
+   parent unpacked under build/): its kernels built and its
+   ops/ghost_temporal.py driving them, B4 (2048^2 f32 and f64, 8192^2
+   f32) and B7 (shard (0, 0) of 2048^2 and 8192^2 on (2, 2), f32 and
+   f64) held bit for bit against this build's and timed in turns (other,
+   this, this, other).
 Output: build/probe_kstep.json by default.  Where no card is visible it
 raises.
 """
@@ -38,11 +47,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import os
 import re
 import shutil
 import subprocess
+import sys
 
 import torch
 
@@ -67,27 +78,61 @@ SLOTS_SM = 4 * 32
 # the K-step kernel's float and double instantiations (T = Sin = Sout) in
 # a mangled name
 KERNEL_NAME = re.compile(r"kstep_kernelI([fd])\1\1E")
+# cilia of the benchmark's grids (c_space 128), by height
+C_NUM = {2048: 16, 8192: 64}
+PAD, XPAD = 16, 128    # a (2, 2) shard's ghost rows and columns a side
 
 
-def bulk_call(dtype, storage):
-    """B4's call at 2048^2 with seeded inputs near equilibrium."""
-    cfg = SimConfig(c_num=16, c_space=128, ydim=2048)
-    band, dev = cfg.force_band, torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    shape = (cfg.ydim, cfg.xdim)
+def _near_equilibrium(shape, storage, dtype, seed=0):
+    """f [9, *shape] near equilibrium, seeded, on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
     rho = 1.0 + 0.02 * torch.randn(shape, generator=g, device=dev,
                                    dtype=torch.float64)
-    u = 0.01 * torch.randn((2,) + shape, generator=g, device=dev,
+    u = 0.01 * torch.randn((2,) + tuple(shape), generator=g, device=dev,
                            dtype=torch.float64)
-    f = ref.equilibrium(rho, u, storage).to(dtype).contiguous()
+    return ref.equilibrium(rho, u, storage).to(dtype).contiguous()
+
+
+def bulk_call(dtype, storage, ydim=2048, launch=None):
+    """B4's call on the ydim^2 grid with seeded inputs near equilibrium,
+    through temporal_bulk, or through ``launch`` (a launch_k_steps) with
+    B4's flags; and its block (rows, pad, width)."""
+    cfg = SimConfig(c_num=C_NUM[ydim], c_space=128, ydim=ydim)
+    band = cfg.force_band
+    f = _near_equilibrium((cfg.ydim, cfg.xdim), storage, dtype)
     bh = f[None, :, band - 1].repeat(K, 1, 1).contiguous()
     out = torch.empty_like(f[:, band:])
+    walls = ref.REFERENCE_WALLS
 
     def call():
-        return temporal_bulk(f[:, band:], bh, cfg, ref.REFERENCE_WALLS,
-                             "trt_split", storage, out=out)
+        if launch is None:
+            return temporal_bulk(f[:, band:], bh, cfg, walls, "trt_split",
+                                 storage, out=out)
+        return launch((1, 1, 0, cfg.flux_x, 1), f[:, band:], None, None,
+                      bh, cfg, walls, "trt_split", storage, out,
+                      "temporal_bulk")
 
     return call, (cfg.ydim - band, 0, cfg.xdim)
+
+
+def shard_call(dtype, storage, ydim, launch):
+    """B7's call on shard (0, 0) of the ydim^2 grid on the (2, 2) mesh: its
+    ydim / 2 rows with 16 ghost rows a side, x-extended by 128 columns a
+    side, the seam in it and the flux column its own."""
+    cfg = SimConfig(c_num=C_NUM[ydim], c_space=128, ydim=ydim)
+    band, yl, xl = cfg.force_band, ydim // 2, cfg.xdim // 2
+    f = _near_equilibrium((yl + 2 * PAD, xl + 2 * XPAD), storage, dtype, 1)
+    bh = f[None, :, PAD + band - 1].repeat(K, 1, 1).contiguous()
+    out = torch.empty_like(f)
+    flags = (1, 0, PAD + band, XPAD + cfg.flux_x % xl, 1)
+
+    def call():
+        return launch(flags, f[:, PAD:PAD + yl], f[:, :PAD],
+                      f[:, PAD + yl:], bh, cfg, ref.REFERENCE_WALLS,
+                      "trt_split", storage, out, "ghost_temporal")
+
+    return call
 
 
 def time_geometry(call, block, reps, dtype, kb, threads=None) -> dict:
@@ -161,6 +206,18 @@ def residency(call, block, reps, libs, registers) -> dict:
     return rows
 
 
+def sync_per_step(ops) -> dict:
+    """The mbarrier instructions (SYNCS) of a kernel's SASS opcodes, in all
+    and, for the arrivals and try-waits (each try-wait's retry included;
+    not the set-up's inits, SYNCS.EXCH), per row step: each of the three
+    roles' row loops is unrolled into RING steps."""
+    syncs = collections.Counter(o for o in ops if o.startswith("SYNCS"))
+    in_loop = sum(n for o, n in syncs.items() if "EXCH" not in o)
+    return dict(syncs=dict(syncs), syncs_total=sum(syncs.values()),
+                syncs_per_row_step=in_loop / (3 * gt.RING),
+                barriers=sum(o.startswith("BAR") for o in ops))
+
+
 def kernel_build_info(lib) -> dict:
     """Registers (ptxas) and the SASS instruction mix of the K-step
     kernel, for float and double."""
@@ -183,12 +240,14 @@ def kernel_build_info(lib) -> dict:
     for block in re.split(r"\n\s*Function : ", text)[1:]:
         m = KERNEL_NAME.search(block.split("\n", 1)[0])
         if m:
-            ops = [o.split(".")[0] for o in re.findall(
-                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                block)]
-            mix = collections.Counter(ops)
+            full = re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                block)
+            mix = collections.Counter(o.split(".")[0] for o in full)
             info.setdefault(m.group(1), {}).update(
-                sass_instructions=len(ops), sass_mix=dict(mix.most_common(16)))
+                sass_instructions=len(full),
+                sass_mix=dict(mix.most_common(16)),
+                **sync_per_step(full))
     return info
 
 
@@ -212,7 +271,69 @@ def profile_call(call) -> dict:
     return rows
 
 
-def measure(reps: int = 20) -> dict:
+def other_driver(root: str):
+    """(library, launch_k_steps) of the checkout at root: its kernels
+    (probe_band_super.other_library) and its ops/ghost_temporal.py, which
+    computes its own geometry and launches from whichever library
+    _kernels.using makes current."""
+    from cuda_iblb_11_tpu_torch.probe_band_super import other_library
+
+    path = os.path.join(os.path.abspath(root), "cuda_iblb_11_tpu_torch",
+                        "ops", "ghost_temporal.py")
+    spec = importlib.util.spec_from_file_location("other_ghost_temporal",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod   # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return other_library(root), mod.launch_k_steps
+
+
+def against_other(root: str, reps: int) -> dict:
+    """Item 7 of the docstring."""
+    other_lib, other_launch = other_driver(root)
+    this_lib = _kernels.load()
+    cases = [("B4", dt, st, n) for n, dt, st in (
+        (2048, torch.float32, "deviatoric"), (2048, torch.float64, "raw"),
+        (8192, torch.float32, "deviatoric"))]
+    cases += [("B7", dt, st, n) for n in (2048, 8192)
+              for dt, st in ((torch.float32, "deviatoric"),
+                             (torch.float64, "raw"))]
+    rec = {}
+    for kernel, dtype, storage, ydim in cases:
+        calls = {}
+        for name, launch in (("this", gt.launch_k_steps),
+                             ("other", other_launch)):
+            calls[name] = (bulk_call(dtype, storage, ydim, launch)[0]
+                           if kernel == "B4" else
+                           shard_call(dtype, storage, ydim, launch))
+        libs = {"this": this_lib, "other": other_lib}
+        outs = {}
+        for name in ("this", "other"):
+            with _kernels.using(libs[name]):
+                outs[name] = [t.clone() for t in calls[name]()]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b)
+                   for a, b in zip(outs["this"], outs["other"]))
+        del outs
+        times = []
+        for name in ("other", "this", "this", "other"):
+            with _kernels.using(libs[name]):
+                times.append(probes.device_ms(calls[name], reps))
+        label = (f"{kernel} {ydim}^2{' (2, 2) shard' * (kernel == 'B7')} "
+                 f"{str(dtype).split('.')[1]}")
+        rec[label] = dict(bit_identical=same, ms=(times[1] + times[2]) / 2,
+                          ms_other=(times[0] + times[3]) / 2,
+                          ms_runs=times[1:3], ms_other_runs=[times[0],
+                                                             times[3]])
+        print(f"{label}: bit-identical {same}; this {times[1]:.4f}, "
+              f"{times[2]:.4f} ms; other {times[0]:.4f}, {times[3]:.4f} "
+              f"ms", flush=True)
+        del calls
+        torch.cuda.empty_cache()
+    return rec
+
+
+def measure(reps: int = 20, against: str | None = None) -> dict:
     probes.require_card("probe_kstep")
     call64, block = bulk_call(torch.float64, "raw")
     f64 = time_depths(call64, block, reps, torch.float64)
@@ -241,6 +362,8 @@ def measure(reps: int = 20) -> dict:
         for name in ("kernel", "collide_as_copy")}
     rec["residency"] = residency(call, block, reps, libs,
                                  rec["build"]["f"]["registers"])
+    if against:
+        rec["against"] = against_other(against, reps)
     return rec
 
 
@@ -249,8 +372,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20,
                     help="calls per timing")
     ap.add_argument("--json", default=DEFAULT_JSON, help="output record")
+    ap.add_argument("--against", default=None,
+                    help="a checkout of another commit to hold B4 and B7 "
+                         "against")
     args = ap.parse_args(argv)
-    rec = measure(args.reps)
+    rec = measure(args.reps, args.against)
     for kb, row in rec["kernel"].items():
         print(f"depth {kb}: {row['ms']:.4f} ms per call "
               f"({row['hbm_passes']} passes, redundancy "
@@ -268,7 +394,9 @@ def main(argv=None) -> int:
         print(f"kstep_kernel<{'float' if t == 'f' else 'double'}>: "
               f"{b.get('registers')} registers, "
               f"{b.get('sass_instructions')} SASS instructions, "
-              f"{b.get('sass_mix')}")
+              f"{b.get('syncs_total')} SYNCS ({b.get('syncs')}; "
+              f"{b.get('syncs_per_row_step', 0):.2f} a role's row step), "
+              f"{b.get('barriers')} BAR, {b.get('sass_mix')}")
     for name, row in rec["residency"].items():
         if isinstance(row, float):
             print(f"residency: {name}: {row:.3f}")

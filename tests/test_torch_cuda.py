@@ -3,13 +3,15 @@ fused_step.cu, B4 and B7 ghost_temporal.cu, B5, B6 and B8 band_super.cu,
 B0 collide_rows.cu, P1-P3 probes.cu) against their plain versions on the
 same inputs on the GPU, B7 with B4's flags against B4 bit for bit, B4
 against K launches of B3 bit for bit, the K-step driver's passes at
-ragged widths, in f64 and with NaN ghosts, and the model's cuda backend
-against its torch backend, single-step, temporal (all three band legs),
-sharded (shards sharing the card, every leg) and in the quirk mode (two
-runs bit for bit; f64 at 2048^2 within 1e-12), the channel through B2h,
-a caller's TF32 setting kept out of the IB, the f32-vs-f64 velocity gates
-at 192^2 over 4,000 steps (single-step and auto), B2 from the
-identity-collide build streaming without colliding, B4 from the
+ragged widths, in f64 and with NaN ghosts, its mbarriers on short and
+ragged segments and strips at every pass depth (each case in a worker
+process with a time limit, so that a hang fails it), and the model's
+cuda backend against its torch backend, single-step, temporal (all three
+band legs), sharded (shards sharing the card, every leg) and in the quirk
+mode (two runs bit for bit; f64 at 2048^2 within 1e-12), the channel
+through B2h, a caller's TF32 setting kept out of the IB, the f32-vs-f64
+velocity gates at 192^2 over 4,000 steps (single-step and auto), B2 from
+the identity-collide build streaming without colliding, B4 from the
 one-block-per-SM build equal to the default build's, a 2048^2 metachrony
 sweep point in f32 against f64 (1e-3) with its exact B5/B4 launches and
 its refusals, validate_flux's f64 early curve against the JAX f64
@@ -1102,6 +1104,100 @@ def test_b7_nan_ghosts_keep_owned_cells(card, K):
     assert torch.isfinite(got[0][own]).all() and torch.isfinite(got[1]).all()
     assert rel_l2(got[0][own], want[0][own]) <= GATE[torch.float32]
     assert rel_l2(got[1], want[1]) <= GATE[torch.float32]
+
+
+# The K-step kernel's mbarriers, case by case in a worker process
+# (tests/_kstep_sync.py) under a time limit, so that a wait no neighbour
+# ever ends fails its case instead of hanging the suite: segments of one
+# row and shorter than the ring, a ragged last strip and segment, pass
+# depths 1, 3, 5 and 8, one pass and two, bf16 storage, B7 with NaN
+# ghosts.
+KSTEP_SYNC_CASES = {
+    "one_row_segments": dict(kernel="B4", dtype="float32",
+                             storage="deviatoric", top="noslip", width=288,
+                             ydim=197, K=5, ly=1),
+    "segments_shorter_than_the_ring": dict(
+        kernel="B4", dtype="float64", storage="raw", top="slip", width=150,
+        ydim=230, K=16, ly=3),
+    "ragged_strip_and_segment": dict(kernel="B4", dtype="float32",
+                                     storage="deviatoric", top="slip",
+                                     width=150, ydim=197, K=16, ly=10),
+    "depth_1": dict(kernel="B4", dtype="float32", storage="deviatoric",
+                    top="slip", width=288, ydim=230, K=1),
+    "depth_3": dict(kernel="B4", dtype="float64", storage="raw",
+                    top="noslip", width=150, ydim=197, K=3),
+    "depth_8_one_pass": dict(kernel="B4", dtype="float32",
+                             storage="deviatoric", top="slip", width=288,
+                             ydim=256, K=8),
+    "two_passes_of_8": dict(kernel="B4", dtype="float64", storage="raw",
+                            top="noslip", width=288, ydim=256, K=16),
+    "bf16_two_passes": dict(kernel="B4", dtype="bfloat16",
+                            storage="deviatoric", top="slip", width=150,
+                            ydim=230, K=16),
+    "b7_nan_ghosts": dict(kernel="B7", dtype="float32",
+                          storage="deviatoric", K=16),
+    "b7_nan_ghosts_depth_5": dict(kernel="B7", dtype="float64",
+                                  storage="raw", K=5),
+}
+KSTEP_SYNC_LIMIT_S = 120   # a case's time, the worker's start included
+
+
+@pytest.fixture(scope="module")
+def kstep_worker():
+    """The worker process's pool, shut down after the module; a case that
+    hangs kills the worker and empties the list, and the next case starts
+    another."""
+    pools = []
+    yield pools
+    for pool in pools:
+        pool.shutdown(cancel_futures=True)
+
+
+def _kstep_sync_result(pools, spec):
+    """run_case(spec) in the worker process, or fail the test if it gives
+    no result within KSTEP_SYNC_LIMIT_S (the worker is then killed)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import _kstep_sync
+    from cuda_iblb_11_tpu_torch.ops import _kernels
+
+    _kernels.load()   # built here, so the worker only loads it
+    if not pools:
+        pools.append(concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")))
+    fut = pools[0].submit(_kstep_sync.run_case, spec)
+    try:
+        return fut.result(timeout=KSTEP_SYNC_LIMIT_S)
+    except concurrent.futures.TimeoutError:
+        pool = pools.pop()
+        for proc in list(pool._processes.values()):
+            proc.kill()
+        pool.shutdown(wait=False, cancel_futures=True)
+        pytest.fail(f"no result in {KSTEP_SYNC_LIMIT_S} s: the K-step "
+                    f"kernel hangs on {spec}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(KSTEP_SYNC_CASES))
+def test_kstep_mbarriers_are_k_launches_of_b3(card, kstep_worker, case):
+    spec = KSTEP_SYNC_CASES[case]
+    res = _kstep_sync_result(kstep_worker, spec)
+    if "ly" in spec:
+        assert set(res["ly"]) == {spec["ly"]}
+    assert res["finite"]
+    assert res["flux_rel"] <= res["gate"]
+    if spec["kernel"] == "B7":
+        assert res["owned_is_short_segments_with_finite_ghosts"]
+        assert res["f_rel"] <= res["gate"]
+        return
+    assert res["f_is_k_launches_of_b3"]
+    if spec["dtype"] == "bfloat16":
+        assert res["bf16_is_f32_rounded"] and res["bf16_flux_is_f32"]
+    if case == "segments_shorter_than_the_ring":
+        assert max(res["segment_rows"]) < 4
+    if case == "ragged_strip_and_segment":
+        assert len(res["segment_rows"]) > 1 and len(res["strip_cols"]) > 1
 
 
 @pytest.mark.cuda

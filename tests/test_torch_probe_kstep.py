@@ -1,7 +1,8 @@
 """probe_kstep.py's readers on the CPU: the K-step kernel's float and
 double instantiations found in a ptxas log by their mangled names (the
-bf16-storage ones left out), and the arithmetic of the issue slots per
-collided cell."""
+bf16-storage ones left out), the mbarrier instructions per row step of a
+SASS opcode list, and the arithmetic of the issue slots per collided
+cell."""
 
 import types
 
@@ -33,6 +34,22 @@ def test_registers_of_the_float_and_double_kernels(monkeypatch):
     lib = types.SimpleNamespace(build_log=LOG, path="/nonexistent/lib.so")
     assert pk.kernel_build_info(lib) == {"f": {"registers": 64},
                                          "d": {"registers": 76}}
+
+
+def test_mbarrier_instructions_per_row_step():
+    # three roles, each row loop unrolled into the ring's four steps: 12
+    # row steps; a try-wait's retry is a second TRYWAIT; the inits
+    # (SYNCS.EXCH) lie outside the loops
+    ops = (["SYNCS.ARRIVE.TRANS64.A1T0"] * 12
+           + ["SYNCS.PHASECHK.TRANS64.TRYWAIT"] * 48
+           + ["SYNCS.EXCH.64", "BAR.SYNC.DEFER_BLOCKING", "FFMA", "LDS"])
+    got = pk.sync_per_step(ops)
+    assert got["syncs_total"] == 61
+    assert got["syncs_per_row_step"] == 5.0
+    assert got["syncs"] == {"SYNCS.ARRIVE.TRANS64.A1T0": 12,
+                            "SYNCS.PHASECHK.TRANS64.TRYWAIT": 48,
+                            "SYNCS.EXCH.64": 1}
+    assert got["barriers"] == 1
 
 
 def test_issue_slots_per_collided_cell():

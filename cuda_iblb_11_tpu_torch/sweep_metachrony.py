@@ -25,11 +25,11 @@ relative flux difference, and each dtype's relative distance to the JAX
 package's TPU record validation/metachrony.json (read as a file; reported,
 not gated); per dtype the c_fraction of the largest Q beside JAX's.
 
-sweep() and run_point() take the knobs the tests and the smoke run cut
-(points, dtypes, steps, chunks, temporal, backend, device, and SimConfig
-fields such as c_num, c_space, ydim), listed under the record's
-``reduced``; main() passes its keyword arguments to sweep().  The record
-merges into build/validation/metachrony.json unless --out (--json) says.
+sweep() and run_point() take the knobs the tests cut (points, dtypes,
+steps, chunks, temporal, backend, device, and SimConfig fields such as
+c_num, c_space, ydim), listed under the record's ``reduced``; main()
+passes its keyword arguments to sweep().  The record merges into
+build/validation/metachrony.json unless --out (--json) says.
 The runs are on the card unless --device cpu is given.
 """
 

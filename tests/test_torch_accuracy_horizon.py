@@ -2,9 +2,9 @@
 accuracy_horizon.py) on the CPU: the f32-vs-f64 gate at 192^2 with 4 cilia
 after 500 steps on the torch backend (< 1e-5, tests/test_accuracy_horizon.py
 :50-57; the card holds 500 / 2,000 / 4,000 on the hand kernels,
-tests/test_torch_cuda.py and chip_smoke.py phase 9), its velocity against
-the JAX script's on the same state (1e-12), the power-law fit, the
-lockstep walk, the record writer and a leg on a few steps."""
+tests/test_torch_cuda.py), its velocity against the JAX script's on the
+same state (1e-12), the power-law fit, the lockstep walk, the record
+writer and a leg on a few steps."""
 
 import json
 import os

@@ -1,27 +1,38 @@
-"""Tests that need the card: the hand kernels of csrc/ (B2, B3 and B2h
-fused_step.cu, B4 and B7 ghost_temporal.cu, B5, B6 and B8 band_super.cu,
-B0 collide_rows.cu, P1-P3 probes.cu) against their plain versions on the
-same inputs on the GPU, B7 with B4's flags against B4 bit for bit, B4
-against K launches of B3 bit for bit, the K-step driver's passes at
-ragged widths, in f64 and with NaN ghosts, its mbarriers on short and
-ragged segments and strips at every pass depth (each case in a worker
-process with a time limit, so that a hang fails it), and the model's
-cuda backend against its torch backend, single-step, temporal (all three
-band legs), sharded (shards sharing the card, every leg) and in the quirk
-mode (two runs bit for bit; f64 at 2048^2 within 1e-12), the channel
-through B2h, a caller's TF32 setting kept out of the IB, the f32-vs-f64
-velocity gates at 192^2 over 4,000 steps (single-step and auto), B2 from
-the identity-collide build streaming without colliding, B4 from the
-one-block-per-SM build equal to the default build's, a 2048^2 metachrony
-sweep point in f32 against f64 (1e-3) with its exact B5/B4 launches and
-its refusals, validate_flux's f64 early curve against the JAX f64
-oracle (1e-9), the model step's kernel spans counting the wrappers'
-launches, and the model step making no host-device sync (a 1,000-step
-interval on the band super-step leg and a single-step chunk, f32, f64 and
-bf16, under torch.cuda.set_sync_debug_mode("error")).  They carry the
-``cuda`` marker and skip on a host without a CUDA device.  This file
-imports no JAX, so on the GPU host (which has none) it runs without the
-JAX conftest:
+"""Tests that need the card, the one suite that holds the port's paths on
+it: the hand kernels of csrc/ (B2, B3 and B2h fused_step.cu, B4 and B7
+ghost_temporal.cu, B5, B6 and B8 band_super.cu, B0 collide_rows.cu, P1-P3
+probes.cu) against their plain versions on the same inputs on the GPU, B7
+with B4's flags against B4 bit for bit, B4 against K launches of B3 bit
+for bit, the K-step driver's passes at ragged widths, in f64 and with NaN
+ghosts, its mbarriers on short and ragged segments and strips at every
+pass depth (each case in a worker process with a time limit, so that a
+hang fails it), and the model's cuda backend against its torch backend,
+single-step (also 512 steps at 2048^2), temporal (all three band legs),
+sharded (shards sharing the card, every leg) and in the quirk mode (two
+runs bit for bit; 512 steps at 2048^2; f64 at 2048^2 within 1e-12); the
+legs against each other at the benchmark's sizes (2048^2 auto against
+single-step over 2,048 steps, bf16 against f32 over 24,576, 8192^2 auto
+against single-step and the x-tiled leg bit for bit) and the meshes
+there against one device (f32, the quirk, f64, bf16); the channel through
+B2h (against the CPU, its analytic profile, and at 2048^2 its plain
+version), the cavity against Ghia, a caller's TF32 setting kept out of
+the IB, the f32-vs-f64 velocity gates at 192^2 over 4,000 steps
+(single-step and auto, exact launches), B2 from the identity-collide
+build streaming without colliding, B4 from the one-block-per-SM build
+equal to the default build's, the probes' own runs, two 2048^2
+metachrony sweep points in f32 against f64 (2e-4) with their exact B5/B4
+launches and their refusals, validate_flux's early curve against the JAX
+f64 oracle (1e-9 in f64, 2e-5 in f32), the CLI of the reference channel
+(2,000 steps: single-step, auto, on (2, 1), in bf16 and in the quirk
+mode, exact launches, flux against the f64 golden and each other), the
+model step's kernel spans counting the wrappers' launches, the model
+step making no host-device sync (a 1,000-step interval on the band
+super-step leg and a single-step chunk, f32, f64 and bf16, under
+torch.cuda.set_sync_debug_mode("error")), and ranks on the card (the
+CLI under two gloo ranks and one NCCL rank bit for bit the one-process
+mesh; the directory checkpoint).  They carry the ``cuda`` marker and
+skip on a host without a CUDA device.  This file imports no JAX, so on
+the GPU host (which has none) it runs without the JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -118,6 +129,25 @@ def random_inputs(cfg, storage, dtype, device, seed=0):
     return f.to(device, dtype), force.to(device, dtype)
 
 
+# the hand kernels' wrappers by kernel ID; each counts its launches
+WRAPPERS = {"B0": collide_slabs, "B2": fused_substep, "B2h": collide_stream,
+            "B3": sharded_fused_substep, "B4": temporal_bulk,
+            "B5": band_super, "B6": band_super_tiled, "B7": ghost_temporal,
+            "B8": band_super_xsharded}
+# the benchmark's grids (iblb_benchmark/configs/)
+SIZES = {"2048x2048": dict(c_num=16, c_space=128, ydim=2048),
+         "8192x8192": dict(c_num=64, c_space=128, ydim=8192)}
+
+
+def counted(fn, *args, **kw):
+    """fn(*args, **kw) and the launches it made, by kernel ID (the kernels
+    it launched only)."""
+    n0 = {k: w.launches for k, w in WRAPPERS.items()}
+    out = fn(*args, **kw)
+    return out, {k: w.launches - n0[k] for k, w in WRAPPERS.items()
+                 if w.launches != n0[k]}
+
+
 CASES = [
     (torch.float32, "deviatoric", "trt_split", "slip"),
     (torch.float32, "deviatoric", "trt_split", "noslip"),
@@ -172,16 +202,18 @@ def test_wrapper_counts_launches_and_guards_buffers(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_sim_cuda_backend_matches_torch_backend(card, dtype):
-    cfg = SimConfig(c_num=6, c_space=48, dtype=dtype)
+@pytest.mark.parametrize("grid,dtype,steps", [
+    ("288x192", "float32", 512), ("288x192", "float64", 50),
+    ("2048x2048", "float32", 512)])
+def test_sim_cuda_backend_matches_torch_backend(card, grid, dtype, steps):
+    kw = SIZES.get(grid, dict(c_num=6, c_space=48))
+    cfg = SimConfig(dtype=dtype, **kw)
     states = {}
     for backend in ("cuda", "torch"):
         sim = MucociliarySim(cfg, backend=backend, device=card)
-        before = fused_substep.launches
-        states[backend] = (sim, sim.run_chunk(sim.init_state(), 50))
-        launched = fused_substep.launches - before
-        assert launched == (50 if backend == "cuda" else 0)
+        st, launched = counted(sim.run_chunk, sim.init_state(), steps)
+        states[backend] = (sim, st)
+        assert launched == ({"B2": steps} if backend == "cuda" else {})
     (sc, a), (_, b) = states["cuda"], states["torch"]
     ua, ub = sc.fields(a)[1], sc.fields(b)[1]
     assert torch.isfinite(ua).all()
@@ -731,7 +763,10 @@ def test_f32_velocity_error_500_2000_4000_steps(card, temporal):
     # tests/test_accuracy_horizon.py:50-73 on the card: 192^2 with 4
     # cilia, f32 (storage auto) single-step (B2) or at auto (K = 16, the
     # per-sub-step leg: B3 + the torch IB + B4) against f64 raw
-    # single-step (B2 in f64)
+    # single-step (B2 in f64).  run_chunk takes pieces of at most 512
+    # steps, each the largest multiple of K as super-steps (K B3 and one
+    # B4 each) and the rest single steps: the calls of 500, 1,500 and
+    # 2,000 steps leave 4 + 12 of 4,000 steps to B2
     from cuda_iblb_11_tpu_torch.accuracy_horizon import velocity
 
     cfg64 = SimConfig(c_num=4, c_space=48, dtype="float64", storage="raw")
@@ -741,13 +776,85 @@ def test_f32_velocity_error_500_2000_4000_steps(card, temporal):
     assert (s32.temporal, s32.resolved_config()["band_leg"]) == (
         (1, "single_step") if temporal == 1 else (16, "per_substep"))
     st64, st32 = s64.init_state(), s32.init_state()
+    n64, n32 = Counter(), Counter()
     errs = {}
     for n, gate in ((500, 1e-5), (2000, 3e-5), (4000, 8e-5)):
-        st64 = s64.run_chunk(st64, n - st64.it)
-        st32 = s32.run_chunk(st32, n - st32.it)
+        st64, a = counted(s64.run_chunk, st64, n - st64.it)
+        st32, b = counted(s32.run_chunk, st32, n - st32.it)
+        n64.update(a)
+        n32.update(b)
         errs[n] = rel_l2(velocity(s32, st32), velocity(s64, st64))
         assert errs[n] < gate, errs
     assert errs[4000] < 12.0 * errs[500], errs
+    assert n64 == {"B2": 4000}
+    assert n32 == ({"B2": 4000} if temporal == 1 else
+                   {"B2": 16, "B3": 3984, "B4": 249}), n32
+
+
+# Whole runs at the benchmark's sizes from the rest state, one run a leg:
+# label: (grid, steps, {run: (dtype, temporal, (tile_x, gx) of the plan
+# held to the card's L2 size or None for auto's, its launches)}, [(run,
+# against, what, gate)]); "bits": f, force and q equal.  A 2,048-step run
+# at 2048^2 is four 512-step pieces of 32 super-steps; the x-tiled leg
+# launches B6 once a tile
+LEGS_AT_SIZE = {
+    "2048x2048 auto against single-step": (
+        "2048x2048", 2048,
+        {"auto": ("float32", "auto", None, {"B4": 128, "B5": 128}),
+         "single": ("float32", 1, None, {"B2": 2048})},
+        [("auto", "single", "velocity", 1e-5)]),
+    "2048x2048 bf16 against f32 over JAX's bench horizon": (
+        "2048x2048", 24576,
+        {"bf16": ("bfloat16", "auto", None, {"B4": 1536, "B5": 1536}),
+         "f32": ("float32", "auto", None, {"B4": 1536, "B5": 1536})},
+        [("bf16", "f32", "velocity", 1e-2), ("bf16", "f32", "q", 1e-2)]),
+    "8192x8192 auto against single-step and the x-tiled leg": (
+        "8192x8192", 32,
+        {"auto": ("float32", "auto", None, {"B4": 2, "B5": 2}),
+         "single": ("float32", 1, None, {"B2": 32}),
+         "x-tiled": ("float32", "auto", (1024, 512), {"B4": 2, "B6": 16})},
+        [("auto", "single", "velocity", 1e-5), ("x-tiled", "auto", "bits",
+                                                None)]),
+    "8192x8192 bf16 x-tiled leg against the whole leg": (
+        "8192x8192", 32,
+        {"auto": ("bfloat16", "auto", None, {"B4": 2, "B5": 2}),
+         "x-tiled": ("bfloat16", "auto", (2048, 512), {"B4": 2, "B6": 8})},
+        [("x-tiled", "auto", "bits", None)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(LEGS_AT_SIZE))
+def test_legs_agree_at_the_benchmark_sizes(card, label):
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
+
+    grid, steps, runs, checks = LEGS_AT_SIZE[label]
+    out = {}
+    for run, (dtype, temporal, tiles, launches) in runs.items():
+        cfg = SimConfig(dtype=dtype, **SIZES[grid])
+        sim = MucociliarySim(cfg, backend="cuda", device=card,
+                             temporal=temporal)
+        if tiles:
+            sim.plan = plan_temporal(cfg, 16, sim.walls, sim.dtype,
+                                     budget=l2_bytes(card))
+            assert (sim.plan.band_leg, sim.plan.tile_x, sim.plan.gx) == (
+                "band_super_xtiled", *tiles)
+        st, n = counted(sim.run_chunk, sim.init_state(), steps)
+        assert n == launches, (run, n)
+        u = sim.fields(st)[1]
+        assert torch.isfinite(u).all(), run
+        out[run] = (st, u)
+        del sim
+    for run, other, what, gate in checks:
+        (a, ua), (b, ub) = out[run], out[other]
+        if what == "velocity":
+            assert rel_l2(ua, ub) < gate, (run, other, rel_l2(ua, ub))
+        elif what == "q":
+            assert abs(float(a.q) - float(b.q)) < gate * abs(float(b.q))
+        else:
+            for field in ("f", "force", "q"):
+                assert torch.equal(getattr(a, field), getattr(b, field)), \
+                    (run, other, field)
 
 
 @pytest.mark.cuda
@@ -1302,6 +1409,103 @@ def test_mesh_8192_takes_b8_and_matches_single_device(card):
     assert abs(float(a.q) - float(b.q)) <= 1e-5 * abs(float(b.q))
 
 
+# Meshes at the benchmark's sizes, every shard on the one card, through
+# the runner's mesh resolution: (grid, mesh, temporal, the plan held to
+# the card's L2 size, steps, ib_x_edge, dtype, band leg, launches per
+# exchange: a super-step, or a step at temporal 1)
+MESHES_AT_SIZE = {
+    "2048x2048 (2, 2) auto": ("2048x2048", (2, 2), "auto", False, 64,
+                              "periodic", "float32", "band_super_xsharded",
+                              {"B8": 2, "B7": 4}),
+    "2048x2048 (2, 1) auto": ("2048x2048", (2, 1), "auto", False, 64,
+                              "periodic", "float32", "band_super_whole",
+                              {"B5": 1, "B7": 2}),
+    "2048x2048 (2, 2) temporal 1": ("2048x2048", (2, 2), 1, False, 64,
+                                    "periodic", "float32",
+                                    "sharded_per_step", {"B3": 4, "B0": 1}),
+    "8192x8192 (2, 2) on the budgeted plan": (
+        "8192x8192", (2, 2), "auto", True, 32, "periodic", "float32",
+        "per_substep_tiled", {"B3": 32, "B0": 16, "B7": 4}),
+    "quirk 2048x2048 (2, 2) temporal 1": (
+        "2048x2048", (2, 2), 1, False, 64, "reference", "float32",
+        "sharded_per_step", {"B3": 4, "B0": 1}),
+    "quirk 2048x2048 (2, 2) auto": (
+        "2048x2048", (2, 2), "auto", False, 64, "reference", "float32",
+        "per_substep_tiled", {"B3": 32, "B0": 16, "B7": 4}),
+    "quirk f64 2048x2048 (2, 2) temporal 1": (
+        "2048x2048", (2, 2), 1, False, 16, "reference", "float64",
+        "sharded_per_step", {"B3": 4, "B0": 1}),
+    "bf16 2048x2048 (2, 2) auto": ("2048x2048", (2, 2), "auto", False, 64,
+                                   "periodic", "bfloat16",
+                                   "band_super_xsharded", {"B8": 2, "B7": 4}),
+    "bf16 2048x2048 (2, 1) auto": ("2048x2048", (2, 1), "auto", False, 64,
+                                   "periodic", "bfloat16",
+                                   "band_super_whole", {"B5": 1, "B7": 2}),
+    "bf16 2048x2048 (2, 2) temporal 1": (
+        "2048x2048", (2, 2), 1, False, 64, "periodic", "bfloat16",
+        "sharded_per_step", {"B3": 4, "B0": 1}),
+    "bf16 8192x8192 (2, 2) auto": ("8192x8192", (2, 2), "auto", False, 32,
+                                   "periodic", "bfloat16",
+                                   "band_super_xsharded", {"B8": 2, "B7": 4}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(MESHES_AT_SIZE))
+def test_mesh_at_size_matches_single_device(card, label):
+    # against the single-device run at the same temporal: f32 velocity
+    # and flux within 1e-5, f64 velocity within 1e-12.  bf16: one call
+    # from the single-device run's end at least 99.9% bit-equal and
+    # within one floored ulp; after the run the velocity less than half
+    # as far from the single-device bf16 run as that is from f32 (at
+    # temporal 1, whose IB reads the stored bf16 f as JAX's mesh does
+    # where the single-device step reads B2's f32 planes: one call is
+    # bit-equal, but the IB feedback carries the moments' rounding on to
+    # bf16's own distance within the run, so within twice it)
+    from cuda_iblb_11_tpu_torch.ops.probes import l2_bytes
+    from cuda_iblb_11_tpu_torch.ops.temporal import plan_sharded
+    from cuda_iblb_11_tpu_torch.runner import _make_mesh_sim
+
+    (grid, mesh, temporal, budgeted, steps, ib_x_edge, dtype, leg,
+     per_exchange) = MESHES_AT_SIZE[label]
+    k = 16 if temporal == "auto" else temporal
+    cfg = SimConfig(dtype=dtype, **SIZES[grid])
+    msim = _make_mesh_sim(cfg, "auto", "trt_split", temporal,
+                          f"{mesh[0]},{mesh[1]}", ib_x_edge, "no_mucus",
+                          card)
+    if budgeted:
+        # auto plans no budget and takes B8 there
+        msim.plan = plan_sharded(cfg, k, *mesh, msim.walls, msim.dtype,
+                                 budget=l2_bytes(card))
+        msim._kernel_path = msim.plan.band_leg
+    single = MucociliarySim(cfg, backend="cuda", device=card,
+                            temporal=temporal, ib_x_edge=ib_x_edge)
+    rc = msim.resolved_config()
+    assert (rc["band_leg"], rc["temporal"], rc["backend"], rc["dtype"]) == \
+        (leg, k, "cuda", dtype)
+    assert (rc["ib_path"] == "stencil_quirk") == (ib_x_edge == "reference")
+    a, n = counted(msim.run_chunk, msim.init_state(), steps)
+    assert n == {kk: v * (steps // k) for kk, v in per_exchange.items()}, n
+    b = single.run_chunk(single.init_state(), steps)
+    ua, ub = msim.fields(a)[1], single.fields(b)[1]
+    assert torch.isfinite(ua).all()
+    if dtype == "float64":
+        assert rel_l2(ua, ub) <= 1e-12
+        return
+    if dtype == "float32":
+        assert rel_l2(ua, ub) <= 1e-5
+        assert abs(float(a.q) - float(b.q)) <= 1e-5 * abs(float(b.q))
+        return
+    one = msim.gather_state(msim.run_chunk(msim.place_state(b), k))
+    share, _, floored = bf16_agreement(one.f, single.run_chunk(b, k).f)
+    assert share >= 0.999 and floored <= 1.0, (share, floored)
+    s32 = MucociliarySim(cfg.replace(dtype="float32"), backend="cuda",
+                         device=card, temporal=temporal)
+    u32 = s32.fields(s32.run_chunk(s32.init_state(), steps))[1]
+    bound = 2.0 if temporal == 1 else 0.5
+    assert rel_l2(ua, ub) <= bound * rel_l2(ub, u32)
+
+
 # --- B2h, the quirk mode, the channel ------------------------------------
 
 B2H_GRIDS = {   # (xdim, ydim, force band or None for the whole height)
@@ -1369,11 +1573,15 @@ def test_b2h_wrapper_refuses_bad_inputs(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("temporal", [1, 4])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_quirk_cuda_matches_torch_backend(card, temporal, dtype):
-    cfg = SimConfig(c_num=6, c_space=48, dtype=dtype)
-    steps = 3 * temporal + 3
+@pytest.mark.parametrize("grid,temporal,dtype,steps", [
+    ("288x192", 1, "float32", 6), ("288x192", 4, "float32", 15),
+    ("288x192", 1, "float64", 6), ("288x192", 4, "float64", 15),
+    ("2048x2048", 1, "float32", 512)])
+def test_quirk_cuda_matches_torch_backend(card, grid, temporal, dtype,
+                                          steps):
+    # 3 super-steps and 3 single steps at temporal 4
+    cfg = SimConfig(dtype=dtype, **SIZES.get(grid, dict(c_num=6,
+                                                        c_space=48)))
     states = {}
     for backend in ("cuda", "torch"):
         sim = MucociliarySim(cfg, backend=backend, device=card,
@@ -1447,6 +1655,80 @@ def test_channel_on_the_card_matches_the_cpu(card, xdim):
     (fa, pa), (fb, pb) = got[str(card)], got["cpu"]
     assert rel_l2(fa, fb) <= 1e-12
     assert rel_l2(pa, pb) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,storage", [(torch.float64, "raw"),
+                                           (torch.float32, "deviatoric")])
+def test_channel_on_the_card_meets_the_analytic_profile(card, dtype,
+                                                        storage):
+    # 16 x 32, 8,000 steps, each one B2h launch
+    ch = PoiseuilleChannel(16, 32, tau=1.0, dtype=dtype, device=card,
+                           storage=storage)
+    f, n = counted(ch.run, ch.init_f(), 8000)
+    assert n == {"B2h": 8000}
+    got = ch.profile(f).double().cpu().numpy()
+    want = ch.analytic_profile()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 3e-3
+
+
+@pytest.mark.cuda
+def test_channel_2048_b2h_matches_plain_version(card):
+    # 2048^2 with the force over the whole height, 512 steps: B2h against
+    # the plain version in f64 raw, f at 1e-12 (a wrong force row or wall
+    # at band = ydim fails it).  In f32 deviatoric the flow, the same in
+    # every column, grows steadily from rest, so round-off accumulates
+    # coherently (1.5e-5 to 2.2e-5 from f64 after 512 steps): B2h no
+    # farther from the f64 run than the plain version, and within 1e-5
+    # of it
+    from cuda_iblb_11_tpu_torch.models import channel
+
+    f64, u = {}, {}
+    for label, dtype, storage in (("B2h", torch.float32, "deviatoric"),
+                                  ("plain", torch.float32, "deviatoric"),
+                                  ("B2h f64", torch.float64, "raw"),
+                                  ("plain f64", torch.float64, "raw")):
+        ch = PoiseuilleChannel(2048, 2048, tau=1.0, body_force=1e-6,
+                               dtype=dtype, device=card, storage=storage)
+        f = ch.init_f()
+        if label.startswith("plain"):
+            for _ in range(512):
+                f = collide_stream_reference(f, ch.force, ch.tau, ch.tau2,
+                                             ch.walls, channel.FORCING,
+                                             ch.storage)
+        else:
+            f, n = counted(ch.run, f, 512)
+            assert n == {"B2h": 512}
+        u[label] = ch.profile(f).double()
+        if dtype == torch.float64:
+            f64[label] = f
+        del f, ch
+    assert rel_l2(f64["B2h f64"], f64["plain f64"]) <= 1e-12
+    assert rel_l2(u["B2h"], u["B2h f64"]) <= rel_l2(u["plain"], u["B2h f64"])
+    assert rel_l2(u["B2h"], u["plain"]) <= 1e-5
+
+
+GHIA_X = (0.0703, 0.2344, 0.5000, 0.8047, 0.9063, 0.9453)
+GHIA_UY = (0.10091, 0.17527, 0.05454, -0.24533, -0.16914, -0.10313)
+
+
+@pytest.mark.cuda
+def test_cavity_on_the_card_against_ghia(card):
+    # 64^2 at Re 100, 30,000 plain torch steps on the card (about a
+    # minute): u_x on the vertical centreline within validate_cavity's
+    # 0.02 lid units of Ghia, Ghia & Shin (1982), u_y on the horizontal
+    # one within 0.025
+    from cuda_iblb_11_tpu_torch import validate_cavity as vc
+    from cuda_iblb_11_tpu_torch.models.cavity import LidDrivenCavity
+
+    cav = LidDrivenCavity(64, 100.0, vc.U_LID, device=card)
+    f = cav.run(cav.init_f(), 30000)
+    ux, uy = (u.double().cpu().numpy() for u in cav.centreline_profiles(f))
+    assert np.isfinite(ux).all() and np.isfinite(uy).all()
+    pos = (np.arange(cav.n) + 0.5) / cav.n
+    gy, gux = vc.GHIA[100]
+    assert np.abs(np.interp(gy, pos, ux) - gux).max() <= vc.GATES[100]
+    assert np.abs(np.interp(GHIA_X, pos, uy) - GHIA_UY).max() <= 0.025
 
 
 # --- P1-P3 ----------------------------------------------------------------
@@ -1546,15 +1828,34 @@ def test_launch_floor_is_positive_and_small(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", probes.CHAIN_OPS)
 def test_p1_chain_matches_plain_version(card, op):
+    # up to probe_vpu's longer chain (R2 links) on its shape
+    from cuda_iblb_11_tpu_torch import probe_vpu
+
     g = torch.Generator(device=card).manual_seed(3)
-    x = 0.5 + torch.rand((256, 1024), generator=g, device=card)
+    x = 0.5 + torch.rand(probe_vpu.SHAPE, generator=g, device=card)
     before = probes.probe_chain.launches
-    for reps in (0, 7, 450):
+    for reps in (0, 7, 450, probe_vpu.R2):
         got = probes.probe_chain(x, reps, op)
         want = probes.probe_chain_reference(x, reps, op)
         torch.cuda.synchronize()
         assert torch.equal(got, want)   # fmaf and the f64 link round once
-    assert probes.probe_chain.launches == before + 3
+    assert probes.probe_chain.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_probes_run_on_the_card(card):
+    # probe_bw's and probe_vpu's own runs: every P2 and P3 pattern on the
+    # 151 MB state bit for bit its plain version (into NaN), and each
+    # rate measured
+    from cuda_iblb_11_tpu_torch import probe_bw, probe_vpu
+
+    bw = probe_bw.measure(reps=1)
+    errs = bw["max_abs_err_vs_plain"]
+    assert errs and all(e == 0.0 for e in errs.values()), errs
+    assert all(row["median_gbs"] > 0 for row in bw["patterns"].values())
+    vpu = probe_vpu.measure(steps=512)
+    assert all(tf > 0 for tf in vpu["tflops_by_op"].values())
+    assert vpu["port_2048"]["mlups"] > 0
 
 
 @pytest.mark.cuda
@@ -1585,21 +1886,28 @@ def test_probe_wrappers_refuse_bad_inputs(card):
 
 @pytest.mark.cuda
 def test_sweep_point_f32_against_f64_with_exact_launches(card):
-    # one 2048^2 point (16 cilia, c_fraction 4) over 512 steps in 2 chunks
-    # on the whole band super-step: 32 B5 and 32 B4 launches, no B2, and
-    # f32 within 1e-3 of f64
+    # two 2048^2 points (16 cilia, c_fraction 4 and 16) over 4,000 steps
+    # in 2 chunks on the whole band super-step: 250 B5 and 250 B4
+    # launches and no other kernel, f32 within 2e-4 of f64 (1.1e-5 and
+    # 3.0e-5 on the card), and the two points' Q farther apart than that
     from cuda_iblb_11_tpu_torch import sweep_metachrony as sm
 
     q = {}
-    for dt in ("float32", "float64"):
-        p = sm.run_point(4, dt, card, steps=512, chunks=2)
-        assert p["launches"] == {"B5 band_super": 32, "B4 temporal_bulk": 32,
-                                 "B2 fused_step": 0}
-        assert (p["sim"]["band_leg"], p["sim"]["temporal"]) == (
-            "band_super_whole", 16)
-        assert p["sim"]["backend"] == "cuda" and p["finite"]
-        q[dt] = p["q_per_beat"]
-    assert abs(q["float32"] - q["float64"]) <= 1e-3 * abs(q["float64"])
+    for cf in (4, 16):
+        for dt in ("float32", "float64"):
+            p, n = counted(sm.run_point, cf, dt, card, steps=4000, chunks=2)
+            assert n == {"B5": 250, "B4": 250}, n
+            assert p["launches"] == {"B5 band_super": 250,
+                                     "B4 temporal_bulk": 250,
+                                     "B2 fused_step": 0}
+            assert (p["sim"]["band_leg"], p["sim"]["temporal"]) == (
+                "band_super_whole", 16)
+            assert p["sim"]["backend"] == "cuda" and p["finite"]
+            q[cf, dt] = p["q_per_beat"]
+        assert abs(q[cf, "float32"] - q[cf, "float64"]) <= \
+            2e-4 * abs(q[cf, "float64"])
+    assert abs(q[4, "float64"] - q[16, "float64"]) > \
+        2e-4 * abs(q[16, "float64"])
 
 
 @pytest.mark.cuda
@@ -1619,17 +1927,24 @@ def test_sweep_point_refuses_another_path(card):
 
 
 @pytest.mark.cuda
-def test_validate_flux_f64_early_curve_against_the_golden(card):
-    # the reference channel in f64 on B2 (raw storage), 2,000 steps:
-    # every 100-step sample within 1e-9 of the JAX f64 oracle's
+@pytest.mark.parametrize("dtype,gate", [("float64", 1e-9),
+                                        ("float32", 2e-5)])
+def test_validate_flux_f64_early_curve_against_the_golden(card, dtype,
+                                                          gate):
+    # the reference channel on B2 at temporal 1, 2,000 steps: every
+    # 100-step sample within 1e-9 (f64, raw storage) and 2e-5 (f32) of
+    # the JAX f64 oracle's early curve
     from cuda_iblb_11_tpu_torch import validate_flux
 
-    leg = validate_flux.run_leg("float64", 2000, 20, card)
-    assert leg["launches"]["B2 fused_step"] == 2000
-    assert leg["sim"]["storage"] == "raw" and leg["sim"]["temporal"] == 1
+    leg, n = counted(validate_flux.run_leg, dtype, 2000, 20, card)
+    assert n == {"B2": 2000}
+    assert leg["launches"]["B2 fused_step"] == 2000 and leg["finite"]
+    assert leg["sim"]["temporal"] == 1
+    if dtype == "float64":
+        assert leg["sim"]["storage"] == "raw"
     rows = leg["early"]["rows"]
     assert [r["it"] for r in rows] == list(range(100, 2001, 100))
-    assert leg["early"]["max_rel"] <= 1e-9
+    assert leg["early"]["max_rel"] <= gate
 
 
 # --- bf16 storage: the _bf16 entries ----------------------------------------
@@ -1786,23 +2101,25 @@ def test_bf16_b6_is_b5_and_b4_is_b3_composed(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kw,temporal,ib_x_edge,leg", [
-    (dict(c_num=6, c_space=48), 1, "periodic", "single_step"),
-    (dict(c_num=6, c_space=48), 16, "periodic", "per_substep"),
-    (SUPER, 8, "periodic", "band_super_whole"),
-    (dict(c_num=6, c_space=48), 1, "reference", "single_step"),
-    (dict(c_num=6, c_space=48), 16, "reference", "per_substep"),
+@pytest.mark.parametrize("kw,temporal,ib_x_edge,leg,warm", [
+    (dict(c_num=6, c_space=48), 1, "periodic", "single_step", None),
+    (dict(c_num=6, c_space=48), 16, "periodic", "per_substep", None),
+    (SUPER, 8, "periodic", "band_super_whole", None),
+    (dict(c_num=6, c_space=48), 1, "reference", "single_step", None),
+    (dict(c_num=6, c_space=48), 16, "reference", "per_substep", None),
+    (SIZES["2048x2048"], 1, "reference", "single_step", 512),
 ])
 def test_bf16_sim_cuda_matches_torch_backend(card, kw, temporal, ib_x_edge,
-                                             leg):
+                                             leg, warm):
     # the whole model in bf16 through the _bf16 entries: from a state the
-    # torch backend reached in 2 K + 3 steps, one call of the leg (K steps,
-    # or one step; the per-sub-step leg at the K = 16 of auto's plan) on
-    # the cuda backend, on the torch backend, and on the torch backend in
-    # f32 (the state widened).  The two bf16 backends round at the same
-    # points, so they lie less than half as far apart as bf16 lies from
-    # f32 (on the CPU, port against JAX's Pallas after one call: 0.002 of
-    # it single-step, 0.04 on the band super-step, 0.28 over the 16
+    # torch backend reached in 2 K + 3 steps (or, with warm, the cuda
+    # backend in warm steps), one call of the leg (K steps, or one step;
+    # the per-sub-step leg at the K = 16 of auto's plan) on the cuda
+    # backend, on the torch backend, and on the torch backend in f32 (the
+    # state widened).  The two bf16 backends round at the same points, so
+    # they lie less than half as far apart as bf16 lies from f32 (on the
+    # CPU, port against JAX's Pallas after one call: 0.002 of it
+    # single-step, 0.04 on the band super-step, 0.28 over the 16
     # sub-steps of the per-sub-step leg)
     wrappers = (fused_substep, collide_stream, sharded_fused_substep,
                 temporal_bulk, band_super)
@@ -1812,8 +2129,13 @@ def test_bf16_sim_cuda_matches_torch_backend(card, kw, temporal, ib_x_edge,
             for b, dt in (("cuda", "bfloat16"), ("torch", "bfloat16"),
                           ("torch", "float32"))}
     assert sims["cuda", "bfloat16"].resolved_config()["band_leg"] == leg
-    torch16 = sims["torch", "bfloat16"]
-    st = torch16.run_chunk(torch16.init_state(), 2 * temporal + 3)
+    if warm is None:
+        torch16 = sims["torch", "bfloat16"]
+        st = torch16.run_chunk(torch16.init_state(), 2 * temporal + 3)
+    else:
+        cuda16 = sims["cuda", "bfloat16"]
+        st, n = counted(cuda16.run_chunk, cuda16.init_state(), warm)
+        assert n == {"B2h": warm}
     n0 = [w.launches for w in wrappers]
     out = {key: sim.run_chunk(st._replace(f=st.f.float()) if key[1] ==
                               "float32" else st, temporal)
@@ -1979,17 +2301,196 @@ def test_quirk_sharded_cuda_matches_torch_backend(card, mesh, K, leg, dtype):
     assert abs(float(a.q) - float(b.q)) <= gate * abs(float(b.q)) + 1e-30
 
 
+# --- the CLI on the card ---------------------------------------------------
+
+def cli_config(argv):
+    """The SimConfig of a CLI argv."""
+    from cuda_iblb_11_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(argv)
+    cfg = SimConfig.from_argv(args.positionals)
+    if args.ydim:
+        cfg = cfg.replace(ydim=args.ydim)
+    return cfg.replace(dtype=args.dtype) if args.dtype else cfg
+
+
+def same_state(a, b):
+    return a.it == b.it and all(
+        getattr(a, k).dtype == getattr(b, k).dtype
+        and torch.equal(getattr(a, k), getattr(b, k))
+        for k in ("f", "force", "lasts", "q"))
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """run(label, argv): the port's CLI on the card, once a label, with
+    its launches by kernel ID, SimLog text, Flux bytes and output paths."""
+    import types
+
+    from cuda_iblb_11_tpu_torch import cli
+    from cuda_iblb_11_tpu_torch.io.writers import OutputPaths
+
+    root = tmp_path_factory.mktemp("cli")
+    runs = {}
+
+    def run(label, argv):
+        if label not in runs:
+            paths = OutputPaths(str(root / label.replace(" ", "_")),
+                                cli_config(argv))
+            rc, n = counted(cli.main, argv + ["--device", "cuda", "--output",
+                                              paths.root, "--quiet"])
+            assert rc == 0, label
+            with open(paths.flux_path, "rb") as fh:
+                flux = fh.read()
+            with open(paths.simlog_path) as fh:
+                simlog = fh.read()
+            runs[label] = types.SimpleNamespace(launches=n, simlog=simlog,
+                                                flux=flux, paths=paths)
+        return runs[label]
+    return run
+
+
+# The reference channel (288 x 192, 6 cilia): 2,000 steps in intervals of
+# 500, flux rows at it = 500 ... 2,000.  Each interval of auto's
+# per-sub-step leg is 31 super-steps (16 B3, one B4 each) and 4 single
+# steps; on (2, 1), per_substep_tiled, a super-step is 16 B3 (one
+# x-column) and 2 B7, a single step 2 B3 and one B0 call.
+CLI_ARGV = ["1", "6", "48", "1.0", "1.0", "5", "0.02", "4", "0", "0"]
+FLUX_ITS = (500, 1000, 1500, 2000)
+QUIRK = ["--ib-x-edge", "reference"]
+AUTO = ["Temporal K: 16 (auto: K=16"]
+MESH_2X1 = ["Mesh: 2,1 over 1 device(s)"]
+BF16 = ["Dtype: bfloat16", "Storage: deviatoric"]
+STENCIL = ["IB path: stencil_quirk"]
+# label: (flags, launches by kernel, SimLog lines)
+CLI_RUNS = {
+    "temporal_1": (["--temporal", "1"], {"B2": 2000},
+                   ["Kernel path: single_step", "Resolved backend: cuda"]),
+    "auto": ([], {"B2": 16, "B3": 1984, "B4": 124},
+             ["Kernel path: per_substep"] + AUTO),
+    "mesh_2x1": (["--mesh", "2,1"], {"B3": 2016, "B7": 248, "B0": 16},
+                 ["Kernel path: per_substep_tiled"] + MESH_2X1 + AUTO),
+    "bf16_temporal_1": (["--dtype", "bfloat16", "--temporal", "1"],
+                        {"B2": 2000}, BF16 + ["Kernel path: single_step"]),
+    "bf16_auto": (["--dtype", "bfloat16"], {"B2": 16, "B3": 1984, "B4": 124},
+                  BF16 + ["Kernel path: per_substep"] + AUTO),
+    "quirk_temporal_1": (QUIRK + ["--temporal", "1"], {"B2h": 2000},
+                         STENCIL + ["Kernel path: single_step"]),
+    "quirk_auto": (QUIRK, {"B2h": 16, "B3": 1984, "B4": 124},
+                   STENCIL + ["Kernel path: per_substep"] + AUTO),
+    "quirk_torch": (QUIRK + ["--backend", "torch"], {}, STENCIL),
+    "quirk_mesh_temporal_1": (
+        QUIRK + ["--mesh", "2,1", "--temporal", "1"], {"B3": 4000, "B0": 2000},
+        STENCIL + ["Kernel path: sharded_per_step"] + MESH_2X1),
+    "quirk_mesh_auto": (QUIRK + ["--mesh", "2,1"],
+                        {"B3": 2016, "B7": 248, "B0": 16},
+                        STENCIL + ["Kernel path: per_substep_tiled"]
+                        + MESH_2X1 + AUTO),
+    "quirk_bf16": (QUIRK + ["--dtype", "bfloat16"],
+                   {"B2h": 16, "B3": 1984, "B4": 124},
+                   STENCIL + BF16 + ["Kernel path: per_substep"]),
+    "quirk_mesh_bf16": (QUIRK + ["--mesh", "2,1", "--dtype", "bfloat16"],
+                        {"B3": 2016, "B7": 248, "B0": 16},
+                        STENCIL + BF16 + ["Kernel path: per_substep_tiled"]
+                        + MESH_2X1),
+}
+CLI_RUNS["quirk_auto_again"] = CLI_RUNS["quirk_auto"]   # two runs, one Flux
+# label: [(check, other run, gate)]: "golden", every flux row within gate
+# of the f64 golden; "rows", of the other run's; "final", the last row;
+# "bytes", the Flux files equal; "nearer", the final Q nearer the other
+# run's than the run named by gate (the f32 curve may cross the bf16 one
+# on the way)
+CLI_CHECKS = {
+    "temporal_1": [("golden", None, 1e-3)],
+    "auto": [("golden", None, 1e-3), ("rows", "temporal_1", 1e-5)],
+    "mesh_2x1": [("golden", None, 2e-5), ("rows", "auto", 1e-5)],
+    "bf16_temporal_1": [("final", "temporal_1", 2e-2)],
+    "bf16_auto": [("final", "auto", 2e-2)],
+    "quirk_temporal_1": [("rows", "quirk_torch", 1e-5)],
+    "quirk_auto": [("rows", "quirk_torch", 1e-5),
+                   ("rows", "quirk_temporal_1", 1e-5),
+                   ("bytes", "quirk_auto_again", None)],
+    "quirk_torch": [],
+    "quirk_mesh_temporal_1": [("rows", "quirk_temporal_1", 1e-5)],
+    "quirk_mesh_auto": [("rows", "quirk_auto", 1e-5)],
+    "quirk_mesh_bf16": [("nearer", "quirk_bf16", "quirk_auto")],
+}
+
+
+def flux_rows(run):
+    """Q at FLUX_ITS of a run's Flux file, in lattice units."""
+    cfg = run.paths.cfg
+    flux = np.loadtxt(run.paths.flux_path)
+    q = {}
+    for it in FLUX_ITS:
+        hit = np.isclose(flux[:, 0], it * cfg.t_scale, rtol=1e-5)
+        assert hit.sum() == 1, it
+        q[it] = float(flux[hit, 1][0]) / cfg.x_scale
+    return q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(CLI_CHECKS))
+def test_cli_on_the_card(card, cli_runs, label):
+    # the CLI of the reference channel, 2,000 f32 steps unless named:
+    # exact launches, SimLog naming the path, flux rows against the f64
+    # golden (validation/flux_early_f64_c6.dat) and the other runs
+    import os
+
+    checks = CLI_CHECKS[label]
+    names = [label] + [o for _, o, _ in checks if o] + [
+        g for c, _, g in checks if c == "nearer"]
+    runs = {}
+    for name in names:
+        flags, launches, lines = CLI_RUNS[name]
+        runs[name] = cli_runs(name, CLI_ARGV + flags)
+        assert runs[name].launches == launches, (name, runs[name].launches)
+        for line in lines:
+            assert line in runs[name].simlog, (name, line)
+    q = {name: flux_rows(run) for name, run in runs.items()}
+    mine = q[label]
+    for check, other, gate in checks:
+        if check == "golden":
+            gold = np.loadtxt(os.path.join(
+                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                "validation", "flux_early_f64_c6.dat"))
+            for it in FLUX_ITS:
+                want = float(gold[gold[:, 0] == it, 1][0])
+                assert abs(mine[it] - want) <= gate * abs(want), it
+        elif check == "rows":
+            for it in FLUX_ITS:
+                assert abs(mine[it] - q[other][it]) <= \
+                    gate * abs(q[other][it]), (other, it)
+        elif check == "final":
+            it = FLUX_ITS[-1]
+            assert abs(mine[it] - q[other][it]) <= gate * abs(q[other][it])
+        elif check == "bytes":
+            assert runs[label].flux == runs[other].flux
+        else:
+            it = FLUX_ITS[-1]
+            assert abs(mine[it] - q[other][it]) < \
+                abs(q[gate][it] - q[other][it])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("world,transport", [
     (2, "gloo (staged through host memory)"), (1, "nccl")])
-def test_distributed_transport_on_the_card(card, tmp_path, world,
+def test_distributed_transport_on_the_card(card, tmp_path, cli_runs, world,
                                            transport):
     # ranks on the one card (tests/test_torch_distributed.py's worker):
     # two take gloo staged through host memory (NCCL refuses two ranks on
     # one card), one takes NCCL.  Each rank's ring shift of card tensors
     # (f32, f64, bf16, 0-d) equals the values moved on one rank, the
     # ordered sum the local sum, and the per-step and temporal meshes
-    # equal the one-process mesh bit for bit
+    # equal the one-process mesh bit for bit.  Then the CLI under the
+    # ranks (td.CARD_CLI: 2048^2 on each leg of the mesh and in bf16, the
+    # quirk): each run's Flux bytes and final npz state bit for bit the
+    # one-process --mesh run's, its SimLog naming the ranks, the
+    # transport and the leg, the ranks' launches summing to the one
+    # process's (B0: one call per exchange on each rank's device, as on
+    # the one process).  Two ranks also write a directory checkpoint half
+    # way and resume it to the uninterrupted run's bits, and it resumes in
+    # one process on (2, 1) and on one device within 1e-5 of it
     import json
     import os
 
@@ -1997,11 +2498,13 @@ def test_distributed_transport_on_the_card(card, tmp_path, world,
 
     from cuda_iblb_11_tpu_torch.io import checkpoint as ckpt
 
-    out = td._wait(td._start(world, "card", str(tmp_path)))
+    out = td._wait(td._start(world, "card", str(tmp_path)), timeout=600)
+    ranks = []
     for r in range(world):
         with open(os.path.join(out, f"card.rank{r}.json")) as fh:
-            assert json.load(fh) == {"transport": transport,
-                                     "device": "cuda:0"}
+            ranks.append(json.load(fh))
+        assert (ranks[r]["transport"], ranks[r]["device"]) == (transport,
+                                                               "cuda:0")
     for name, (_, _, n) in td.CARD_RUNS.items():
         cfg, sim = td.card_mesh(None, name, card)
         one = sim.gather_state(sim.run_chunk(sim.init_state(), n))
@@ -2010,4 +2513,64 @@ def test_distributed_transport_on_the_card(card, tmp_path, world,
         for field in ("f", "force", "lasts", "q"):
             assert torch.equal(getattr(got, field),
                                getattr(one, field).cpu()), (name, field)
+
+    def files(root, argv):
+        """(Flux bytes, final npz state, SimLog) of a run written to root."""
+        from cuda_iblb_11_tpu_torch.io.writers import OutputPaths
+
+        paths = OutputPaths(root, cli_config(argv))
+        with open(paths.flux_path, "rb") as fh:
+            flux = fh.read()
+        st, _ = ckpt.load(os.path.join(paths.raw_dir, "checkpoint.npz"))
+        with open(paths.simlog_path) as fh:
+            return flux, st, fh.read()
+
+    for name in td.card_cli(world):
+        argv, leg = td.CARD_CLI[name]
+        one = cli_runs(f"one process {name}", argv)
+        flux, st, log = files(os.path.join(out, f"cli_{name}"), argv)
+        one_flux, one_st, _ = files(one.paths.root, argv)
+        assert flux == one_flux and same_state(st, one_st), name
+        for line in (f"Distributed: {world} rank(s), transport {transport}",
+                     f"Kernel path: {leg}", "Device: cuda:0"):
+            assert line in log, (name, line)
+        per_rank = [rk["launches"][name] for rk in ranks]
+        assert all(per_rank), (name, per_rank)
+        summed = Counter()
+        for n in per_rank:
+            summed.update({k: v for k, v in n.items() if k != "B0"})
+        assert summed == {k: v for k, v in one.launches.items()
+                          if k != "B0"}, (name, per_rank, one.launches)
+        assert all(n.get("B0", 0) == one.launches.get("B0", 0)
+                   for n in per_rank), (name, per_rank, one.launches)
+    if world == 1:
+        return
+    # the directory checkpoint, resumed by two ranks
+    argv = td.CARD_CLI["f32_auto_2x2"][0]
+    ck = os.path.join(out, "cli_ckpt")
+    ck_dir = os.path.join(ck, "Raw", "16", "1", "checkpoint_orbax")
+    assert sorted(os.listdir(ck_dir)) == [".metadata", "__0_0.distcp",
+                                          "__1_0.distcp", "iblb.json"]
+    flux, st, log = files(ck, argv)
+    two_flux, two_st, _ = files(os.path.join(out, "cli_f32_auto_2x2"), argv)
+    assert "Resumed from checkpoint at iteration 128" in log
+    assert flux == two_flux and same_state(st, two_st)
+    # ... and in one process
+    cfg = cli_config(argv)
+    sim = MucociliarySim(cfg, backend="cuda", device=card)
+
+    def velocity(s):
+        return sim.fields(s._replace(f=s.f.to(card),
+                                     force=s.force.to(card)))[1]
+
+    u_two = velocity(two_st)
+    for label, flags in (("resume one process 2,1", ["--mesh", "2,1"]),
+                         ("resume one device", [])):
+        resumed = cli_runs(label, td.CARD_ARGV + flags + [
+            "--resume", ck_dir, "--checkpoint-every", "128"])
+        _, st1, _ = files(resumed.paths.root, argv)
+        assert st1.f.dtype == two_st.f.dtype
+        assert rel_l2(velocity(st1), u_two) <= 1e-5, label
+        assert abs(float(st1.q) - float(two_st.q)) <= \
+            1e-5 * abs(float(two_st.q)), label
 

@@ -207,8 +207,67 @@ def _worker_card(comm, out):
                                                CARD_RUNS[name][2]))
         if comm.rank == 0:
             ckpt.save(os.path.join(out, f"card_{name}.npz"), whole, cfg)
+    launches = _card_cli(comm, out)
     with open(os.path.join(out, f"card.rank{comm.rank}.json"), "w") as fh:
-        json.dump({"transport": comm.name, "device": str(dev)}, fh)
+        json.dump({"transport": comm.name, "device": str(dev),
+                   "launches": launches}, fh)
+
+
+# the CLI on the card under the ranks: 2048^2 with 16 cilia, 256 steps in
+# intervals of 128, on each leg of the mesh and in bf16; the quirk at the
+# reference channel, 192 steps.  Each run writes its final state as an npz
+# checkpoint.  name: (argv, band leg)
+CARD_ARGV = ["1", "16", "128", "1.0", "1.0", "5", "0.00256", "2", "0", "0",
+             "--ydim", "2048"]
+CARD_HALF = CARD_ARGV[:6] + ["0.00128", "1"] + CARD_ARGV[8:]   # 128 steps
+CARD_CLI = {
+    "f32_auto_2x2": (CARD_ARGV + ["--mesh", "2,2", "--checkpoint-every",
+                                  "256"], "band_super_xsharded"),
+    "f32_auto_2x1": (CARD_ARGV + ["--mesh", "2,1", "--checkpoint-every",
+                                  "256"], "band_super_whole"),
+    "f32_temporal_1_2x2": (CARD_ARGV + ["--mesh", "2,2", "--temporal", "1",
+                                        "--checkpoint-every", "256"],
+                           "sharded_per_step"),
+    "bf16_auto_2x2": (CARD_ARGV + ["--mesh", "2,2", "--dtype", "bfloat16",
+                                   "--checkpoint-every", "256"],
+                      "band_super_xsharded"),
+    "quirk_auto_2x1": (["1", "6", "48", "1.0", "1.0", "5", "0.00192", "2",
+                        "0", "0", "--mesh", "2,1", "--ib-x-edge", "reference",
+                        "--checkpoint-every", "192"], "per_substep_tiled"),
+}
+
+
+def card_cli(world):
+    """The CARD_CLI runs of `world` ranks: every run on two, one on one."""
+    return list(CARD_CLI) if world > 1 else ["f32_auto_2x2"]
+
+
+def _card_cli(comm, out):
+    """This rank's CARD_CLI runs with --distributed, each into
+    out/cli_<name>, and on two ranks the directory checkpoint written half
+    way and resumed, into out/cli_ckpt; returns this rank's launches by
+    run and kernel ID."""
+    from test_torch_cuda import counted
+
+    from cuda_iblb_11_tpu_torch.cli import main
+
+    launches = {}
+    for name in card_cli(comm.world):
+        rc, launches[name] = counted(main, CARD_CLI[name][0] + [
+            "--distributed", "--quiet", "--output",
+            os.path.join(out, f"cli_{name}")])
+        assert rc == 0, name
+    if comm.world > 1:
+        ck = os.path.join(out, "cli_ckpt")
+        assert main(CARD_HALF + [
+            "--mesh", "2,2", "--distributed", "--quiet", "--output", ck,
+            "--checkpoint-every", "128", "--checkpoint-format", "orbax"]) == 0
+        assert main(CARD_ARGV + [
+            "--mesh", "2,2", "--distributed", "--quiet", "--output", ck,
+            "--resume", os.path.join(ck, "Raw", "16", "1",
+                                     "checkpoint_orbax"),
+            "--checkpoint-every", "128"]) == 0
+    return launches
 
 
 def _worker(cases, out):

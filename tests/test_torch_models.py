@@ -5,7 +5,7 @@ largest |f| (a velocity is a difference of O(0.1) populations, so its
 round-off is absolute, not relative to the small velocity); then the
 Poiseuille channel against its analytic profile (3e-3, the gate of
 tests/test_poiseuille.py).  The cavity's Ghia check runs on the card
-(chip_smoke.py phase 7).
+(tests/test_torch_cuda.py::test_cavity_on_the_card_against_ghia).
 """
 
 import numpy as np

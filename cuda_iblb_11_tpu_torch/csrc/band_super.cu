@@ -46,11 +46,20 @@
 // flux [K] (raw sums; the caller divides by 192; not written when
 // flux_x = -1).
 //
-// Design: one launch per stage per sub-step, with the band L2-resident
-// between them (at 2048^2 the extended band is 10.6 MB in f32, inside the
-// 50 MB L2): stages 1-3 are the row kernel of step.cuh, stage 4
-// interp_kernel, stages 5-6 spread_kernel, and after the K sub-steps one
-// column_sum_kernel launch: 3K + 1 launches per call.  The TPU contracts
+// Design: a few launches per sub-step, with the band L2-resident between
+// them (at 2048^2 the extended band is 10.6 MB in f32, inside the 50 MB
+// L2): stages 1-3 are the row kernel of step.cuh and stage 4
+// interp_kernel; stages 5-6 of sub-step s run inside sub-step s + 1's row
+// kernel (BandStep, below: the spread folded into the band step), and
+// those of the last sub-step in spread_kernel, after which one
+// column_sum_kernel sums the flux.  A call is sub-step 0's plain forced
+// step, K interpolations, K - 1 band steps with the spread folded in, one
+// spread and the flux sum: 2K + 2 launches (34 at K = 16; 2K + 1 where
+// flux_x = -1), where one launch per stage and sub-step took 3K + 1 (49).
+// The benchmark's b5_roofline finds B5's device time by these kernels'
+// names and order (iblb_benchmark/counts/b5.py: every step_kernel right
+// before an interp_kernel, every interp_kernel and spread_kernel, the
+// column_sum_kernel right after a spread_kernel).  The TPU contracts
 // each window densely on the MXU (a [3 band, W] x [W, 128] interpolation
 // and a [2 band, 128] x [128, W] spread per cilium, with a bf16 split for
 // f32 precision, :1226-1251).
@@ -62,26 +71,47 @@
 //     2048^2, where one thread a point gave 16); lane r gathers row
 //     ay - 2 + r, then lane 0 of the group folds the five rows in row
 //     order.  No shared memory.
-//   spread_kernel: one thread a band cell, 32 x 8 a block.  The block
-//     first lists its candidates in shared memory: the windows that meet
-//     its tile (a ballot over the cilia), then, two windows a round, the
-//     points whose 5 x 5 support meets the tile widened by 2 (a ballot and
-//     prefix count over each window's 128 points), in point order, each
-//     with dy a0, dy a1 and dx for its five row and column offsets.  Each
-//     cell then tests that list alone (the nodes that come within two
-//     cells of the tile), where the all-points loop tested 384 points a
-//     cell (3 windows of 128 at 2048^2), and the delta factors are formed
-//     once a candidate, not once a cell.  Shared memory: 21,536 bytes a
-//     block in f32, 37,920 in f64 (the list holds SCAP = 256
-//     candidates).  A round that would pass 256 is preceded by a pass over
-//     the list so far, which is then emptied: a block with more candidates
-//     (three cilia curled into one tile hold 384) sums them in more
-//     passes, in the same order, never cut.
+//   the spread (gather_forces): a 32 x 8 block over a region of band
+//     cells first lists its candidates in shared memory: the windows that
+//     meet the region (a ballot over the cilia), then, two windows a
+//     round, the points whose 5 x 5 support meets the region widened by 2
+//     (a ballot and prefix count over each window's 128 points), in point
+//     order, each with dy a0, dy a1 and dx for its five row and column
+//     offsets.  Each cell then tests that list alone (the nodes that come
+//     within two cells of the region), where the all-points loop tested
+//     384 points a cell (3 windows of 128 at 2048^2), and the delta
+//     factors are formed once a candidate, not once a cell.  The list
+//     holds SCAP = 256 candidates: a round that would pass 256 is
+//     preceded by a pass over the list so far, which is then emptied, so
+//     a block with more candidates (three cilia curled into one tile hold
+//     384) sums them in more passes, in the same order, never cut.
+//     spread_kernel's region is its tile, one cell a thread; the band
+//     step's is the 34 x 10 cells it collides (the tile and the one-cell
+//     halo the pull reads; a band cell's force is formed by each of the
+//     up to four blocks that collide it, the same way in each), up to two
+//     a thread.  Its list shares the block's shared memory with the
+//     collide tile: the forces are formed first, then left in planes 0
+//     and 1 of the tile at each cell's place, where the collide reads
+//     them as the plain step reads the force from memory (handed over in
+//     registers instead, the band step's collide contracted differently
+//     and missed the unfused build's bits by an ulp in some cells).  The
+//     block holding the flux column writes sub-step s - 1's entries from
+//     its own q before it writes q_s there.
 // Both reductions take each cell's terms in the order of the earlier
 // all-points loop (cilium, then point; fma for fma), so every output
-// equals that version's bit for bit (PERF.md §6).
-// Registers (ptxas, sm_90a): spread_kernel 47 (float) and 62 (double),
-// interp_kernel 32 and 52, the forced step_kernel 32 and 63; no spills.
+// equals that version's, and the unfused build's, bit for bit (PERF.md
+// §6).
+// Registers and shared memory a block (ptxas, sm_90a; float, double): the
+// band step with the spread 57 and 64 registers, 21,536 and 37,920 bytes
+// (the list; the collide tile's 12,240 and 24,480 fit inside it);
+// spread_kernel 47 and 62, 21,536 and 37,920; interp_kernel 32 and 52,
+// none; sub-step 0's forced step_kernel 32 and 63, 12,240 and 24,480.
+// In double the band step asks for 4 blocks an SM (BandStep::kMinBlocks):
+// left alone the compiler took 78 registers and 3 blocks, and the call
+// 0.556 ms against 0.534 with the cap, its 16 bytes of spill stores
+// included.  In float it takes 4 blocks an SM (the plain step 8): caps
+// at 6 and 5 blocks (40 and 48 registers) gave 0.388 and 0.382 ms a call
+// against 0.381.  No other kernel spills.
 //
 // What bounds it on an H100: arithmetic, at K = 16.  The call must read
 // f_ext, the force and the points and write f_band, bhalos and the force
@@ -90,17 +120,30 @@
 // force-free collide of the K - s ghost rows that still reach the band at
 // sub-step s, plus the moments and each point's 3 x 3 delta support
 // (0.80 GFLOP at K = 16, 0.012 ms at 67 TFLOP/s).  The call takes about
-// 0.40 ms at 2048^2 (PERF.md; NVIDIA H100 80GB HBM3 at 700 W): per
-// sub-step the forced step about 0.0096 ms, the spread 0.0072 and the
-// interpolation 0.0046, each a dependent pass over the L2-resident band,
-// and the 49 launches' gaps the rest.  The interpolation's and the
-// spread's times are mostly each launch's fixed cost.
+// 0.38 ms at 2048^2 in f32 and 0.534 in f64, where the unfused build took
+// 0.40 and 0.63 (PERF.md; NVIDIA H100 80GB HBM3 at 700 W).  In f32 the
+// band step with the spread takes about 0.0165 ms, what the plain step
+// (0.0095) and the spread (0.0072) took apart: the fold saves the
+// spread's launches and their gaps (about 1.2 us each), not work, and the
+// benchmark's f32 B5 device time stays as it was.  Of the fold's share,
+// forming the list costs twice what summing it does in f32 (0.061 and
+// 0.028 ms a call, read from builds that skip the one or the other); in
+// f64 (before the register cap) the sums cost more (0.058) and the list
+// less (0.017).  The interpolation, 0.0046 ms a launch, is mostly its
+// launch's fixed cost.
+// Tried and dropped (PERF.md §6): each entry's row and column cover as
+// warp-ballot masks, so that a cell visits only the entries that reach
+// it (the same order and terms; 0.4257 against 0.3830 ms a call in f32,
+// 0.606 against 0.555 in f64, both without the f64 register cap: building
+// the masks cost more than the tests they saved), and the entries' values
+// loaded with their anchors, ahead of the ballot (0.389 against 0.381 in
+// f32).
 //
 // B6 at 8192^2 (f32, K = 16), on a plan held to the card's L2 size as a
 // budget: 8 tiles of 1,024 interior + 2 x 512 ghost columns, so each
 // tile's working set (about 50 MB: f_ext and two scratch copies of
 // 144 x 2,048 cells, f_band, q, the force) stays L2-resident across its
-// 3K + 1 launches, where the whole 8192-wide band (about 42 MB of f_ext
+// launches, where the whole 8192-wide band (about 42 MB of f_ext
 // alone) streams each launch through HBM.  The cost of the design is
 // 2 gx / tile = 2x redundant band columns and 8x the launches, and on the
 // card they cost more than the HBM passes they save: the whole band (B5)
@@ -237,8 +280,8 @@ __global__ void __launch_bounds__(ITHREADS) interp_kernel(const IbArgs<T> b) {
 // support covers it, cilium by cilium in order (every window that covers
 // the cell, under the periodic wrap; in block order on a tile), then the
 // flux column.  A block first lists its candidates in shared memory: the
-// windows that meet its tile (the circle test below), two at a time, and
-// of each the points whose 5 x 5 support meets the tile's rows and
+// windows that meet its region (the circle test below), two at a time,
+// and of each the points whose 5 x 5 support meets the region's rows and
 // columns, compacted by a warp ballot in point order.  Each candidate
 // carries its window start and anchor, dy * a0 and dy * a1 for the five
 // row offsets and dx for the five column offsets, formed once for the
@@ -247,7 +290,10 @@ __global__ void __launch_bounds__(ITHREADS) interp_kernel(const IbArgs<T> b) {
 // the terms of every point that reaches it, cilium by cilium and point by
 // point, as a loop over all the points would.  A list that would pass
 // SCAP entries is summed and emptied first (a second pass over the rest,
-// in order), never cut.
+// in order), never cut.  Two kernels gather: spread_kernel over its 32 x 8
+// tile, one cell a thread (the last sub-step's force), and the band step
+// of every later sub-step over the 34 x 10 cells it collides, up to two a
+// thread (BandStep below).
 constexpr int STHREADS = TX * TY;            // 256: two windows of points
 constexpr int SWARPS = STHREADS / 32;
 constexpr int SCAP = 256;                    // candidates a pass
@@ -281,47 +327,60 @@ __device__ __forceinline__ int block_ballot(bool pred, int tid, int* cnt,
   return off;
 }
 
-template <typename T>
+// The first n entries of the list added to each valid cell (x[i], y[i]) of
+// this thread, entry by entry.
+template <typename T, int NC>
 __device__ __forceinline__ void spread_sum(const SpreadList<T>& s, int n,
-                                           int x, int y, int xdim, int wwin,
-                                           T& acc0, T& acc1) {
+                                           const int (&x)[NC],
+                                           const int (&y)[NC],
+                                           const bool (&valid)[NC],
+                                           int xdim, int wwin,
+                                           T (&acc)[NC][2]) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) any = any || valid[i];
+  if (!any) return;
   for (int k = 0; k < n; ++k) {
     const int4 p = s.pt[k];
-    const int oy = y - p.z + 2;
-    if ((unsigned)oy > 4u) continue;
-    int w = x - p.x;
-    w += w < 0 ? xdim : 0;
-    const int ox = w - p.y + 2;
-    if (w >= wwin || (unsigned)ox > 4u) continue;
-    const T dx = s.v[k][10 + ox];
-    acc0 = fma(s.v[k][oy], dx, acc0);
-    acc1 = fma(s.v[k][5 + oy], dx, acc1);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int oy = y[i] - p.z + 2;
+      if (!valid[i] || (unsigned)oy > 4u) continue;
+      int w = x[i] - p.x;
+      w += w < 0 ? xdim : 0;
+      const int ox = w - p.y + 2;
+      if (w >= wwin || (unsigned)ox > 4u) continue;
+      const T dx = s.v[k][10 + ox];
+      acc[i][0] = fma(s.v[k][oy], dx, acc[i][0]);
+      acc[i][1] = fma(s.v[k][5 + oy], dx, acc[i][1]);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
-  __shared__ SpreadList<T> s;
-  const int x0 = blockIdx.x * TX;
-  const int tw = min(TX, b.xdim - x0);
-  const int y0 = blockIdx.y * TY;
-  const int y1 = min(y0 + TY, b.band) - 1;   // the tile's last row
-  const int x = x0 + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  const bool valid = x < b.xdim && y < b.band;
+// The force at this thread's cells (x[i], y[i]) where valid[i], of a
+// region of the band: columns [rx0, rx0 + rw) on the circle (rx0 in
+// [0, X)), rows [ry0, ry1].  Every thread of the block calls it; it
+// synchronises the block and leaves the list's last entries in s.
+template <typename T, int NC>
+__device__ __forceinline__ void gather_forces(const IbArgs<T>& b,
+                                              SpreadList<T>& s, int rx0,
+                                              int rw, int ry0, int ry1,
+                                              const int (&x)[NC],
+                                              const int (&y)[NC],
+                                              const bool (&valid)[NC],
+                                              T (&acc)[NC][2]) {
   const int tid = threadIdx.y * TX + threadIdx.x;
   const int npts = b.c_num * NPT;
-  T acc0 = T(0.0);
-  T acc1 = T(0.0);
   int n = 0;   // entries in the list (the same in every thread)
   for (int mb = 0; mb < b.c_num; mb += STHREADS) {
     const int m = mb + tid;
     bool meet = false;
     if (m < b.c_num) {
       const int wstart = wrap(b.win_lo0 + m * b.cw, b.xdim);
-      // window [wstart, wstart + W) and tile [x0, x0 + tw), on the circle
-      meet = wrap(x0 - wstart, b.xdim) < b.wwin ||
-             wrap(wstart - x0, b.xdim) < tw;
+      // window [wstart, wstart + W) and region [rx0, rx0 + rw), on the
+      // circle
+      meet = wrap(rx0 - wstart, b.xdim) < b.wwin ||
+             wrap(wstart - rx0, b.xdim) < rw;
     }
     int nwin;
     const int wslot = block_ballot(meet, tid, s.cnt, nwin);
@@ -337,19 +396,19 @@ __global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
         ws = wrap(b.win_lo0 + mw * b.cw, b.xdim);
         ay = b.ay[i];
         ax = b.axl[i];
-        // the tile's columns have window columns wl .. wl + tw - 1, taken
-        // modulo X: a superset of spread_sum's per-cell test
-        int wl = x0 - ws;
+        // the region's columns have window columns wl .. wl + rw - 1,
+        // taken modulo X: a superset of spread_sum's per-cell test
+        int wl = rx0 - ws;
         wl += wl < 0 ? b.xdim : 0;
-        const int wh = wl + tw - 1;
-        pred = ay + 2 >= y0 && ay - 2 <= y1 &&
+        const int wh = wl + rw - 1;
+        pred = ay + 2 >= ry0 && ay - 2 <= ry1 &&
                ((ax + 2 >= wl && ax - 2 <= wh) ||
                 (ax + 2 >= wl - b.xdim && ax - 2 <= wh - b.xdim));
       }
       int tot;
       const int slot = block_ballot(pred, tid, s.cnt, tot);
       if (n + tot > SCAP) {   // block-uniform: sum the list, empty it
-        if (valid) spread_sum(s, n, x, y, b.xdim, b.wwin, acc0, acc1);
+        spread_sum(s, n, x, y, valid, b.xdim, b.wwin, acc);
         n = 0;
         __syncthreads();
       }
@@ -372,15 +431,115 @@ __global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
       __syncthreads();   // the entries are written
     }
   }
-  if (!valid) return;
-  spread_sum(s, n, x, y, b.xdim, b.wwin, acc0, acc1);
-  const long long j = (long long)y * b.xdim + x;
-  b.force[j] = acc0;
-  b.force[(long long)b.band * b.xdim + j] = acc1;
-  if (x == b.flux_x) {  // never for flux_x = -1
-    const long long plane = (long long)b.band * b.xdim;
-    b.fluxcol[y] = (b.q[plane + j] + T(0.5) * acc0) / b.q[j];
+  spread_sum(s, n, x, y, valid, b.xdim, b.wwin, acc);
+}
+
+// The half-force corrected u_x of band cell j (flat in [band, X]): the
+// flux column's entry, from the moments q of the sub-step and the x-force
+// f0 that the sub-step's IB put there.
+template <typename T>
+__device__ __forceinline__ T flux_entry(const T* q, long long plane,
+                                        long long j, T f0) {
+  return (q[plane + j] + T(0.5) * f0) / q[j];
+}
+
+// The last sub-step's force and flux column, one thread a band cell.
+template <typename T>
+__global__ void __launch_bounds__(STHREADS) spread_kernel(const IbArgs<T> b) {
+  __shared__ SpreadList<T> s;
+  const int x0 = blockIdx.x * TX;
+  const int y0 = blockIdx.y * TY;
+  const int x[1] = {x0 + (int)threadIdx.x};
+  const int y[1] = {y0 + (int)threadIdx.y};
+  const bool valid[1] = {x[0] < b.xdim && y[0] < b.band};
+  T acc[1][2] = {{T(0.0), T(0.0)}};
+  gather_forces(b, s, x0, min(TX, b.xdim - x0), y0,
+                min(y0 + TY, b.band) - 1, x, y, valid, acc);
+  if (!valid[0]) return;
+  const long long plane = (long long)b.band * b.xdim;
+  const long long j = (long long)y[0] * b.xdim + x[0];
+  b.force[j] = acc[0][0];
+  b.force[plane + j] = acc[0][1];
+  if (x[0] == b.flux_x) {  // never for flux_x = -1
+    b.fluxcol[y[0]] = flux_entry(b.q, plane, j, acc[0][0]);
   }
+}
+
+// The band step of sub-step s >= 1 (step.cuh's step_kernel with kSpread):
+// the spread of sub-step s - 1 folded into it.  Each block lists the
+// points of s - 1 that reach the 34 x 10 cells it collides (its tile and
+// the one-cell halo the pull reads) and forms their forces as
+// spread_kernel would, fma for fma, and the block that owns the flux
+// column writes s - 1's entries there from q_{s-1} before it writes q_s
+// over them.  The list and the collide tile share the block's shared
+// memory: the forces are formed before the tile is filled.  A block whose
+// cells all lie above the band lists nothing (their force is zero).
+template <typename T>
+struct BandStep {
+  struct Args : StepArgs<T> {
+    IbArgs<T> ib;   // sub-step s - 1's points and amp; its flux column
+  };
+  union Shared {
+    T s[9][SY][SX];
+    SpreadList<T> list;
+  };
+  // blocks an SM the registers must allow: in double, 4 (64 registers,
+  // where the compiler took 78 and 3 blocks); in float none (57)
+  static constexpr int kMinBlocks = sizeof(T) == 8 ? 4 : 0;
+
+  // The forces of this thread's cells c = tid and tid + TX * TY of the
+  // 34 x 10 region (row-major, from the tile's corner less one row and
+  // column) that lie in the band, into planes 0 and 1 of the collide tile
+  // at the cell's place.  The band step's rows are the band's (y0 = 0).
+  static __device__ __forceinline__ void form_forces(const Args& a,
+                                                     Shared& sm) {
+    const IbArgs<T>& b = a.ib;
+    const int tid = threadIdx.y * TX + threadIdx.x;
+    const int x0 = blockIdx.x * TX;
+    const int r0 = blockIdx.y * TY;
+    int x[2], y[2];
+    bool valid[2], own[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * TX * TY;
+      const int ly = c / SX;
+      const int lx = c - ly * SX;
+      y[i] = r0 + ly - 1;
+      x[i] = wrap(x0 + lx - 1, b.xdim);
+      valid[i] = c < SY * SX && y[i] >= 0 && y[i] < b.band;
+      own[i] = valid[i] && ly >= 1 && ly <= TY && lx >= 1 && lx <= TX &&
+               x0 + lx - 1 < b.xdim;
+    }
+    T acc[2][2] = {{T(0.0), T(0.0)}, {T(0.0), T(0.0)}};
+    if (r0 <= b.band) {   // block-uniform: the region meets the band
+      gather_forces(b, sm.list, wrap(x0 - 1, b.xdim), SX, max(r0 - 1, 0),
+                    min(r0 + TY, b.band - 1), x, y, valid, acc);
+    }
+    const long long plane = (long long)b.band * b.xdim;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (own[i] && x[i] == b.flux_x) {  // never for flux_x = -1
+        b.fluxcol[y[i]] = flux_entry(
+            b.q, plane, (long long)y[i] * b.xdim + x[i], acc[i][0]);
+      }
+    }
+    __syncthreads();   // the list is read: the collide tile takes its place
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (valid[i]) {
+        const int c = tid + i * TX * TY;
+        sm.s[0][c / SX][c % SX] = acc[i][0];
+        sm.s[1][c / SX][c % SX] = acc[i][1];
+      }
+    }
+  }
+};
+
+template <typename Sout, typename T>
+int launch_band_step(const typename BandStep<T>::Args& a, cudaStream_t st) {
+  const dim3 grid((a.xdim + TX - 1) / TX, (a.rows + TY - 1) / TY);
+  step_kernel<T, T, Sout, true, true, true><<<grid, dim3(TX, TY), 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // S: the storage type of f_ext and f_band.  The sub-steps between the
@@ -407,6 +566,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   a.q_rows = band;
   a.q = (T*)q;
   a.k = make_coeffs<T>(tau, tau2, forcing_trt, deviatoric);
+  a.force = (const T*)force_in;   // sub-step 0's; the later ones form it
 
   IbArgs<T> b{};
   b.q = (const T*)q;
@@ -420,6 +580,7 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
   b.force = (T*)force_out;
   b.flux_x = flux_x;
 
+  typename BandStep<T>::Args fa{};
   void* buf[2] = {buf0, buf1};
   const long long bplane = (long long)rows * xdim;
   const long long pts = (long long)c_num * NPT;
@@ -432,12 +593,17 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
     a.f_out = last ? f_band : buf[s % 2];
     a.out_plane = last ? band_plane : bplane;
     a.out_rows = last ? band : rows;
-    a.force = s == 0 ? (const T*)force_in : (const T*)force_out;
     a.f1out = (T*)bhalos + (long long)s * 9 * xdim;
-    int err = s == 0 ? (last ? launch_step<S, S>(a, true, st)
-                             : launch_step<S, T>(a, true, st))
-                     : (last ? launch_step<T, S>(a, true, st)
-                             : launch_step<T, T>(a, true, st));
+    int err;
+    if (s == 0) {
+      err = last ? launch_step<S, S>(a, true, st)
+                 : launch_step<S, T>(a, true, st);
+    } else {   // b still holds sub-step s - 1's points and flux column
+      static_cast<StepArgs<T>&>(fa) = a;
+      fa.ib = b;
+      err = last ? launch_band_step<S, T>(fa, st)
+                 : launch_band_step<T, T>(fa, st);
+    }
     if (err) return err;
 
     b.us = (const T*)us + s * 2 * pts;
@@ -450,11 +616,11 @@ int band_super(const void* f_ext, long long ext_plane, void* f_band,
     interp_kernel<T><<<iblocks, ITHREADS, 0, st>>>(b);
     err = (int)cudaGetLastError();
     if (err) return err;
-    spread_kernel<T><<<sgrid, dim3(TX, TY), 0, st>>>(b);
-    err = (int)cudaGetLastError();
-    if (err) return err;
   }
-  if (flux_x < 0) return 0;  // a tile without the flux column
+  // the last sub-step's force (force_out) and flux column
+  spread_kernel<T><<<sgrid, dim3(TX, TY), 0, st>>>(b);
+  const int err = (int)cudaGetLastError();
+  if (err || flux_x < 0) return err;  // flux_x < 0: no flux column
   column_sum_kernel<T, false><<<K, SUM_THREADS, 0, st>>>(
       (const T*)colbuf, band, 0, band, (T*)flux);
   return (int)cudaGetLastError();

@@ -1,8 +1,10 @@
 // The collide + pull-stream step over a block of rows, shared by B2/B3
 // and B2h (fused_step.cu) and the first stage of each B5/B6/B8 sub-step
-// (band_super.cu).  B4 and B7 (ghost_temporal.cu) repeat its pulls, seam
-// and top wall operation for operation in their temporally blocked
-// kernel, and use its flux sum (column_sum_kernel).  B0's bf16 entry
+// (band_super.cu; from the second sub-step on with the spread of the one
+// before folded in: the kSpread flag below).  B4 and B7
+// (ghost_temporal.cu) repeat its pulls, seam and top wall operation for
+// operation in their temporally blocked kernel, and use its flux sum
+// (column_sum_kernel).  B0's bf16 entry
 // (collide_rows.cu) reads f through its load_f.
 //
 // Replaces the body of cuda_iblb_11_tpu/ops/pallas_step.py:_pipelined_kernel
@@ -30,6 +32,15 @@
 //      kEmit = false instantiation (B2h, the collide + stream without
 //      emission) carries none of their code: it writes the streamed rows
 //      only.
+// Template flags: kForced (the force read below the band), kEmit, and
+// kSpread, which only band_super.cu's band step of sub-steps s >= 1
+// takes: it forms the force of the cells it collides from sub-step
+// s - 1's points (the spread, fma for fma as spread_kernel forms it)
+// instead of reading it, and writes s - 1's flux column, and in double
+// asks the compiler for 4 blocks an SM (StepKernel::kMinBlocks; 0, no
+// request, for every other instantiation).  B2, B2h, B3 (fused_step.cu)
+// and B5's first sub-step never take it, so their instantiations are the
+// kSpread = false ones, as before the flag (the same registers and SASS).
 //
 // Design: one block per 32 x 8 tile.  The block collides its tile plus a
 // one-cell halo (34 x 10 cells) into shared memory (9 x 10 x 34 values,
@@ -125,11 +136,38 @@ struct StepArgs {
   Coeffs<T> k;
 };
 
+// kSpread's arguments, shared memory (the collide tile aliased with the
+// spread's candidate list) and register request are BandStep<T>'s, which
+// band_super.cu defines.  BandStep<T>::form_forces leaves each collided
+// band cell's force in planes 0 and 1 of the collide tile, at the cell's
+// own place, where the thread that collides the cell reads it before it
+// writes the cell's f1 there.
+template <typename T>
+struct BandStep;
+
+template <typename T, bool kSpread>
+struct StepKernel {
+  using Args = StepArgs<T>;
+  struct Shared {
+    T s[9][SY][SX];
+  };
+  static constexpr int kMinBlocks = 0;   // no register cap
+};
+template <typename T>
+struct StepKernel<T, true> {
+  using Args = typename BandStep<T>::Args;
+  using Shared = typename BandStep<T>::Shared;
+  static constexpr int kMinBlocks = BandStep<T>::kMinBlocks;
+};
+
 template <typename T, typename Sin, typename Sout, bool kForced,
-          bool kEmit = true>
-__global__ void __launch_bounds__(TX * TY)
-    step_kernel(const StepArgs<T> a) {
-  __shared__ T s[9][SY][SX];
+          bool kEmit = true, bool kSpread = false>
+__global__ void __launch_bounds__(TX * TY,
+                                  StepKernel<T, kSpread>::kMinBlocks)
+    step_kernel(const typename StepKernel<T, kSpread>::Args a) {
+  __shared__ typename StepKernel<T, kSpread>::Shared sm;
+  auto& s = sm.s;
+  if constexpr (kSpread) BandStep<T>::form_forces(a, sm);
   const int x0 = blockIdx.x * TX;
   const int r0 = blockIdx.y * TY;
   const int xdim = a.xdim;
@@ -163,9 +201,14 @@ __global__ void __launch_bounds__(TX * TY)
       T gyv = T(0.0);
       const int yg = a.y0 + r;
       if (kForced && yg < a.band) {  // force is band-only: never read above
-        const long long jf = (long long)yg * xdim + gx;
-        gxv = a.force[jf];
-        gyv = a.force[fplane + jf];
+        if constexpr (kSpread) {
+          gxv = s[0][ly][lx];
+          gyv = s[1][ly][lx];
+        } else {
+          const long long jf = (long long)yg * xdim + gx;
+          gxv = a.force[jf];
+          gyv = a.force[fplane + jf];
+        }
       }
       collide_cell<T, kForced>(fi, gxv, gyv, a.k, f1);
       if (kEmit && r == a.expose_row && ly >= 1 && ly <= TY && lx >= 1

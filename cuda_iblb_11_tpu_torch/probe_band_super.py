@@ -18,16 +18,18 @@ itself (two runs).
    build's time per call in turns (other, this, this, other; CUDA events
    after a spin kernel, ops/probes.device_ms).  Cases, K = 16, seeded
    inputs near equilibrium and the points of 16 real steps from it = 1000:
-   B5 at 2048^2 (16 cilia) f32 deviatoric and f64 raw, both top walls, and
-   at 8192^2 (64 cilia) f32 deviatoric, top slip; B6 where the card's L2
-   size as a budget splits the band, 2048^2 f64 raw (both tops) and
-   8192^2 f32; B8 on both x-shards of the 2048^2 (2, 2) mesh, f32 and
-   f64, both tops.
+   B5 at 2048^2 (16 cilia) f32 deviatoric and f64 raw, both top walls,
+   bf16 storage (the _bf16 entry), top slip, and at 8192^2 (64 cilia) f32
+   deviatoric, top slip; B6 where the card's L2 size as a budget splits
+   the band, 2048^2 f64 raw (both tops) and 8192^2 f32; B8 on both
+   x-shards of the 2048^2 (2, 2) mesh, f32, f64 and bf16 storage.
 2. B6 against B5 on the same inputs, torch.equal, for each build: at
    those shapes and at tests/test_torch_cuda.py's B6 shapes (384 x 192
    with 12 cilia on three tiles, K = 2 and 4, f32 and f64).
-3. Registers, shared memory and spills of each kernel of the source
-   (ptxas, this build), and torch.profiler's device ms by kernel of one B5
+3. Registers, shared memory and spills of each kernel of band_super.cu
+   and of the sources whose kernels share its step template
+   (fused_step.cu: B2, B2h, B3) or its collide (collide_rows.cu: B0), for
+   each build (ptxas), and torch.profiler's device ms by kernel of one B5
    call at 2048^2 f32 for each build.
 Output: build/probe_band_super.json by default.  Where no card is visible
 it raises.
@@ -54,13 +56,15 @@ MESH = (2, 2)
 # name -> (c_num, c_space, ydim)
 GRIDS = {"2048x2048": (16, 128, 2048), "8192x8192": (64, 128, 8192)}
 TEST_TILED = dict(c_num=12, c_space=128, ydim=192)
+# the sources whose kernels' resources the record holds
+RESOURCE_SOURCES = ("band_super.cu", "fused_step.cu", "collide_rows.cu")
 
 
 def other_library(root: str) -> _kernels.KernelLibrary:
     """The kernel library built from the csrc/ of the checkout at root,
     into build/kernels/probe_band_super/ (all compiles started
-    together), its float32 and float64 entries bound (a checkout from
-    before bf16 storage has no others)."""
+    together), its bf16 entries bound where it has them (a checkout from
+    before bf16 storage has float32 and float64 entries only)."""
     src = os.path.join(os.path.abspath(root), "cuda_iblb_11_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
@@ -77,7 +81,10 @@ def other_library(root: str) -> _kernels.KernelLibrary:
     lib = os.path.join(out, "libiblb_kernels_other.so")
     log += _kernels._run([[nvcc] + _kernels.ARCH + ["-shared", "-o", lib]
                           + objs])
-    return _kernels.KernelLibrary(lib, 0.0, log, bf16=False)
+    try:
+        return _kernels.KernelLibrary(lib, 0.0, log)
+    except RuntimeError:
+        return _kernels.KernelLibrary(lib, 0.0, log, bf16=False)
 
 
 def kernel_resources(log: str, source="band_super.cu") -> dict:
@@ -93,7 +100,7 @@ def kernel_resources(log: str, source="band_super.cu") -> dict:
         if not ours:
             continue
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)I"
-                      r"([fd](?:Lb[01]E)*)E", line)
+                      r"([fd]+(?:Lb[01]E)*)E", line)
         if m:
             key = f"{m.group(1)}<{m.group(2)}>"
             out[key] = {}
@@ -113,7 +120,8 @@ def kernel_resources(log: str, source="band_super.cu") -> dict:
 
 
 def _inputs(cfg, storage, dtype, seed):
-    """Seeded f near equilibrium and a band force on the card."""
+    """Seeded f near equilibrium (in dtype) and a band force (in the
+    compute dtype: float32 under bf16 storage) on the card."""
     from cuda_iblb_11_tpu_torch.core.lattice import W
     from cuda_iblb_11_tpu_torch.ops import reference as ref
 
@@ -129,7 +137,8 @@ def _inputs(cfg, storage, dtype, seed):
                         storage)
     w = torch.tensor(W, dtype=torch.float64, device=dev)[:, None, None]
     f = (f + 1e-4 * randn(*f.shape) * w).to(dtype).contiguous()
-    return f, (1e-4 * randn(2, cfg.force_band, x)).to(dtype).contiguous()
+    cdt = torch.promote_types(dtype, torch.float32)
+    return f, (1e-4 * randn(2, cfg.force_band, x)).to(cdt).contiguous()
 
 
 def _points(cfg, K_, halo, dtype, it0=1000):
@@ -165,7 +174,8 @@ def cases(grids=GRIDS):
             ("2048x2048", "float32", "deviatoric", "noslip"),
             ("2048x2048", "float64", "raw", "slip"),
             ("2048x2048", "float64", "raw", "noslip"),
-            ("8192x8192", "float32", "deviatoric", "slip")]
+            ("8192x8192", "float32", "deviatoric", "slip"),
+            ("2048x2048", "bfloat16", "deviatoric", "slip")]
     for seed, (gname, dt, storage, top) in enumerate(sets):
         if gname not in grids:
             continue
@@ -276,7 +286,9 @@ def measure(against=None, reps=10, grids=GRIDS) -> dict:
     other = "other" if against else "this"
     rec = {"card": probes.card_line(), "device": torch.cuda.get_device_name(0),
            "against": against, "cases": {}, "b6_vs_b5": {},
-           "resources": kernel_resources(builds.libs["this"].build_log)}
+           "resources": {n: {src: kernel_resources(lib.build_log, src)
+                             for src in RESOURCE_SOURCES}
+                         for n, lib in builds.libs.items()}}
     for label, calls in cases(grids):
         b6b5 = {}
         for kname, fn in calls.items():
@@ -326,8 +338,10 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=DEFAULT_JSON, help="output record")
     args = ap.parse_args(argv)
     rec = measure(args.against, args.reps)
-    for key, row in rec["resources"].items():
-        print(f"{key}: {row}")
+    for n, by_source in rec["resources"].items():
+        for src, kernels in by_source.items():
+            for key, row in kernels.items():
+                print(f"resources {n} {src} {key}: {row}")
     for n, rows in rec["profile_b5_2048_f32_ms"].items():
         for name, ms in rows.items():
             print(f"profile {n}: {name}: {ms:.4f} ms per call")

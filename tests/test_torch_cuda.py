@@ -25,7 +25,12 @@ launches and their refusals, validate_flux's early curve against the JAX
 f64 oracle (1e-9 in f64, 2e-5 in f32), the CLI of the reference channel
 (2,000 steps: single-step, auto, on (2, 1), in bf16 and in the quirk
 mode, exact launches, flux against the f64 golden and each other), the
-model step's kernel spans counting the wrappers' launches, the model
+model step's kernel spans counting the wrappers' launches, B5, B6 and B8
+at K = 1 to 16 in f32, f64 and bf16 storage with each sub-step's spread
+folded into the next sub-step's band step (the flux column on a tile's
+first and last column and in a ragged tile's wrapped columns), one B5
+call's device kernels in the order the benchmark's counts/b5.py sums
+them (2K + 2, or 2K + 1 without the flux column), the model
 step making no host-device sync (a 1,000-step interval on the band
 super-step leg and a single-step chunk, f32, f64 and bf16, under
 torch.cuda.set_sync_debug_mode("error")), and ranks on the card (the
@@ -59,7 +64,7 @@ from cuda_iblb_11_tpu_torch.core.lattice import W
 from cuda_iblb_11_tpu_torch.models.mucociliary import prep_band_super_points
 from cuda_iblb_11_tpu_torch.ops import reference as ref
 from cuda_iblb_11_tpu_torch.ops.band_super import (
-    band_super, band_super_reference,
+    band_super, band_super_reference, launch_band_super,
 )
 from cuda_iblb_11_tpu_torch.ops.band_super_tiled import (
     band_super_tiled, band_super_tiled_reference,
@@ -343,9 +348,10 @@ def test_b4_matches_plain_version(card, K, dtype, storage, top):
 
 
 def super_inputs(cfg, K, dtype, storage, device, it0=137, seed=4):
-    """f_ext, force and the points of K real steps from it0."""
+    """f_ext, force and the points of K real steps from it0 (K = 1 with
+    the pad and halo of K = 2: no plan takes a one-step super-step)."""
     sim = MucociliarySim(cfg, backend="torch", device=device, dtype=dtype,
-                         temporal=K)
+                         temporal=max(K, 2))
     plan = sim.plan
     # the whole leg (no device holds the band to a budget); the x-tiled
     # leg takes the same inputs
@@ -358,23 +364,113 @@ def super_inputs(cfg, K, dtype, storage, device, it0=137, seed=4):
             [x[0] for x in xs], plan.halo)
 
 
+# f in f32, f64 and bf16 storage (the band super-step's compute dtype
+# f32 under bf16)
+SUPER_CASES = TEMPORAL_CASES[::3] + [(torch.bfloat16, "deviatoric", "slip")]
+SUPER_OUTPUTS = ("f_band", "bhalos", "force", "flux")
+
+
+def super_config(dtype, flux=None, **grid):
+    """SimConfig of grid (SUPER by default) with f in dtype and the flux
+    column at x = flux (the model's x = X - 5 for None); flux "wrapped" is
+    column 5 of a ragged 500-column domain (c_space 125), one of the
+    columns that the last 32-column tile, 20 columns wide, collides past
+    the domain's end."""
+    grid = dict(SUPER, **grid)
+    if flux == "wrapped":
+        grid["c_space"], flux = 125, 5
+    cfg = SimConfig(dtype=str(dtype).split(".")[-1], **grid)
+    if flux is None:
+        return cfg
+    return dataclasses.replace(cfg, flux_column_offset=cfg.xdim - flux)
+
+
+def super_gates(dtype):
+    g, gi = (1e-6, 1e-5) if dtype != torch.float64 else (1e-12, 1e-11)
+    return [("f_band", g), ("bhalos", g), ("force", gi), ("flux", gi)]
+
+
+def check_super(got, want, dtype, gates=None):
+    """A band super-step call against its plain version (bf16 f: at least
+    99.9% bit-equal)."""
+    gates = gates or super_gates(dtype)
+    (_check_bf16 if dtype == torch.bfloat16 else _check_all)(got, want,
+                                                            gates)
+
+
+# (K, flux column): the model's, on a 32-column tile's first column (256)
+# and last (255), and in the wrapped columns of a ragged last tile; a
+# sub-step s >= 1 folds sub-step s - 1's spread and flux column into its
+# band step
+B5_CASES = ([(K, None) for K in (1, 2, 4, 16)]
+            + [(K, x) for x in (256, 255, "wrapped") for K in (2, 16)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [2, 4])
-@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
-def test_b5_matches_plain_version(card, K, dtype, storage, top):
-    cfg = SimConfig(dtype=str(dtype).split(".")[-1], **SUPER)
-    f_ext, force, xs, halo = super_inputs(cfg, K, dtype, storage, card)
+@pytest.mark.parametrize("K,flux", B5_CASES)
+@pytest.mark.parametrize("dtype,storage,top", SUPER_CASES)
+def test_b5_matches_plain_version(card, K, flux, dtype, storage, top):
+    cfg = super_config(dtype, flux)
+    cdt = torch.promote_types(dtype, torch.float32)
+    f_ext, force, xs, halo = super_inputs(cfg, K, cdt, storage, card)
+    f_ext = f_ext.to(dtype)
     walls = ref.WallSpec(top=top)
+    args = (f_ext, force, *xs, cfg, halo, walls, "trt_split", storage)
     before = band_super.launches
-    got = band_super(f_ext, force, *xs, cfg, halo, walls, "trt_split",
-                     storage)
-    want = band_super_reference(f_ext, force, *xs, cfg, halo, walls,
-                                "trt_split", storage)
+    got, again = band_super(*args), band_super(*args)
+    want = band_super_reference(*args)
     torch.cuda.synchronize()
-    assert band_super.launches == before + 1
-    g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
-    _check_all(got, want, [("f_band", g), ("bhalos", g), ("force", gi),
-                           ("flux", gi)])
+    assert band_super.launches == before + 2
+    for name, a, b in zip(SUPER_OUTPUTS, got, again):   # no atomics
+        assert torch.equal(a, b), name
+    check_super(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("owned", [True, False])
+@pytest.mark.parametrize("K", [1, 2, 16])
+def test_b5_device_kernels_are_what_the_benchmark_sums(card, K, owned):
+    # one call's device kernels, read as the benchmark's trace reads them:
+    # per sub-step the band step (from the second on the instantiation
+    # that folds in the spread before it) and the interpolation, then the
+    # last spread and, where the block owns the flux column, the flux sum;
+    # counts/b5.py sums every one of them
+    from torch.profiler import ProfilerActivity, profile
+
+    from iblb_benchmark.counts import b5, kernel_name
+    from iblb_benchmark.trace import read_device
+
+    cfg = SimConfig(**SUPER)
+    f_ext, force, xs, halo = super_inputs(cfg, K, torch.float32,
+                                          "deviatoric", card)
+
+    def call():
+        return launch_band_super(
+            f_ext, force, xs, cfg, cfg.c_space + 2 * halo, -halo,
+            cfg.flux_x if owned else None, ref.REFERENCE_WALLS, "trt_split",
+            "deviatoric", "band_super")
+
+    want = (["step_kernel", "interp_kernel"] * K + ["spread_kernel"]
+            + ["column_sum_kernel"] * owned)
+    call()
+    torch.cuda.synchronize()
+    # the C entry launches the same kernels in the same order every call,
+    # so one clean profile shows it; a profile of the full card suite
+    # once read another sequence here, which no rerun showed again, so a
+    # profile that does not read it is taken again, twice at most
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ops = read_device(prof.profiler.kineto_results.events())
+        names = [kernel_name(o.name) for o in ops]
+        if names == want:
+            break
+    assert names == want, names
+    assert len(ops) == 2 * K + 1 + owned
+    steps = [o.name for o in ops[:2 * K:2]]
+    assert all(n == steps[-1] != steps[0] for n in steps[1:])
+    assert b5.device_seconds(ops) == sum(o.seconds for o in ops)
 
 
 @pytest.mark.cuda
@@ -655,29 +751,29 @@ def _hold_candidates(got, again, want, dtype, zero_force):
     """The kernel against its second run (bit for bit: no atomics) and
     against the plain version (the gates above; where the force is all
     zero, it is zero in both)."""
-    g, gi = (1e-6, 1e-5) if dtype == torch.float32 else (1e-12, 1e-11)
-    names = ("f_band", "bhalos", "force", "flux")
-    for name, a, b in zip(names, got, again):
+    for name, a, b in zip(SUPER_OUTPUTS, got, again):
         assert torch.equal(a, b), name
-    gates = [("f_band", g), ("bhalos", g), ("force", gi), ("flux", gi)]
+    gates = super_gates(dtype)
     if zero_force:
         assert not got[2].any() and not want[2].any()
         got, want, gates = (got[:2] + got[3:], want[:2] + want[3:],
                             gates[:2] + gates[3:])
     else:
         assert got[2].abs().max() > 0
-    _check_all(got, want, gates)
+    check_super(got, want, dtype, gates)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [2, 16])
 @pytest.mark.parametrize("layout", ["edges", "seam", "curled", "inert",
                                     "zero_eps"])
 @pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
-def test_b5_candidate_list(card, layout, dtype, storage, top):
+def test_b5_candidate_list(card, layout, dtype, storage, top, K):
     # points where pruning the spread's candidates could drop one: the
-    # kernel against the plain version and against itself
+    # kernel against the plain version and against itself; from the
+    # second sub-step on the band step lists them (the same points in
+    # every sub-step, so "curled" passes SCAP there too)
     cfg = SimConfig(dtype=str(dtype).split(".")[-1], **SUPER)
-    K = 2
     f_ext, force, _, halo = super_inputs(cfg, K, dtype, storage, card)
     xs = placed_points(cfg, K, halo, dtype, card, *placement(cfg, layout),
                        eps=0.0 if layout == "zero_eps" else 0.05)
@@ -691,20 +787,23 @@ def test_b5_candidate_list(card, layout, dtype, storage, top):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 16])
 @pytest.mark.parametrize("kernel,layout", [("B6", "seam"), ("B6", "curled"),
                                            ("B8", "edges")])
-@pytest.mark.parametrize("dtype,storage,top", TEMPORAL_CASES[::3])
-def test_b6_b8_candidate_list(card, kernel, layout, dtype, storage, top):
+@pytest.mark.parametrize("dtype,storage,top", SUPER_CASES)
+def test_b6_b8_candidate_list(card, kernel, layout, dtype, storage, top, K):
     # B6 on tiles (the seam's cilia lifted into the first and last tile)
     # and B8 in the phase-general layout (c_space 256 on four x-shards:
-    # windows c_space wider, from block column 0)
+    # windows c_space wider, from block column 0); K = 1 on the K = 2
+    # layout; bf16 storage with f32 points and force
     walls = ref.WallSpec(top=top)
-    K = 2
+    cdt = torch.promote_types(dtype, torch.float32)
     if kernel == "B6":
         cfg = SimConfig(dtype=str(dtype).split(".")[-1], **TILED)
-        plan = xtiled_plan(cfg, K, dtype)
-        f_ext, force, _, halo = super_inputs(cfg, K, dtype, storage, card)
-        xs = placed_points(cfg, K, halo, dtype, card,
+        plan = xtiled_plan(cfg, max(K, 2), dtype)
+        f_ext, force, _, halo = super_inputs(cfg, K, cdt, storage, card)
+        f_ext = f_ext.to(dtype)
+        xs = placed_points(cfg, K, halo, cdt, card,
                            *placement(cfg, layout))
         args = (f_ext, force, *xs, cfg, halo, plan.tile_x, plan.gx, walls,
                 "trt_split", storage)
@@ -715,17 +814,19 @@ def test_b6_b8_candidate_list(card, kernel, layout, dtype, storage, top):
                         dtype=str(dtype).split(".")[-1])
         n_x = 4
         xl = cfg.xdim // n_x
-        lay = xshard_layout(cfg, 8, K, walls, dtype, xl, n_x)
+        pad = max(K, 8)
+        lay = xshard_layout(cfg, pad, K, walls, dtype, xl, n_x)
         assert lay.phase_general
-        f, force = random_inputs(cfg, storage, dtype, card, seed=12)
-        xs = placed_points(cfg, K, lay.halo, dtype, card,
+        f, force = random_inputs(cfg, storage, cdt, card, seed=12)
+        f = f.to(dtype)
+        xs = placed_points(cfg, K, lay.halo, cdt, card,
                            *placement(cfg, layout))
         ix = 1          # its block's edge runs through cilium 2's nodes
         cols = torch.arange(ix * xl - lay.gx, (ix + 1) * xl + lay.gx,
                             device=card) % cfg.xdim
         owned = ix * xl <= cfg.flux_x < (ix + 1) * xl
         flags = (cfg.flux_x - ix * xl + lay.gx if owned else 0, int(owned))
-        args = (flags, f[:, :cfg.force_band + 8][:, :, cols].contiguous(),
+        args = (flags, f[:, :cfg.force_band + pad][:, :, cols].contiguous(),
                 force[:, :, cols].contiguous(),
                 *shard_points(lay, xs, cfg, ix, xl), cfg, lay, walls,
                 "trt_split", storage)

@@ -27,6 +27,10 @@ ptxas info    : Compiling entry function '{NS}13interp_kernelIfEEvNS_6IbArgsIT_E
 ptxas info    : Function properties for {NS}13interp_kernelIfEEvNS_6IbArgsIT_EE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 32 registers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '{NS}11step_kernelIfffLb1ELb1ELb1EEEvNS_10StepKernelIT_XT4_EE4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for {NS}11step_kernelIfffLb1ELb1ELb1EEEvNS_10StepKernelIT_XT4_EE4ArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 57 registers, used 1 barriers, 21536 bytes smem, 808 bytes cmem[0]
 /usr/local/cuda/bin/nvcc -gencode arch=compute_90a,code=sm_90a -O3 \
 -c /r/cuda_iblb_11_tpu_torch/csrc/fused_step.cu -o /b/fused_step.cu.o
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111step_kernelIfLb1ELb1EEEvNS_8StepArgsIT_EE' for 'sm_90a'
@@ -43,6 +47,10 @@ def test_kernel_resources_reads_the_ptxas_log():
                                        smem_bytes=24480),
         "interp_kernel<f>": dict(spill_stores=0, registers=32,
                                  smem_bytes=0),
+        # the band step with the spread folded in: three type arguments
+        # and three flags
+        "step_kernel<fffLb1ELb1ELb1E>": dict(spill_stores=0, registers=57,
+                                             smem_bytes=21536),
     }
     # fused_step.cu's step kernel is another source's
     assert pbs.kernel_resources(LOG.replace(" \\\n", " "),

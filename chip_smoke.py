@@ -59,6 +59,10 @@ line:
           mesh at 2048 x 2048 (xl 1,024, gx 512, 14 point blocks), and of
           x-shard 1 at 8192 x 8192 (xl 4,096: the 5,120-column block),
           real points (B5's gates);
+       M1 the cilia's overlap mask of a 512-step chunk at 12288 x 192
+          (256 cilia 48 apart: three neighbours a node), f32 and f64, on
+          the beat's placed points and on points moved by up to a spacing
+          (the beat there switches no node off), bit for bit;
      then each kernel's time at 2048 x 2048 f32 beside its plain version
      (CUDA events after a spin kernel, plain/kernel/kernel/plain), its
      bytes and its bound; B4-B8 also at 8192 x 8192 f32, B4-B7 at 2048 x
@@ -66,7 +70,8 @@ line:
      function), B4 at 8192 x 8192 f64; for B4 and B7 the K-step driver's
      HBM passes per call, its redundancy and the arithmetic bound with
      it; B0's one call against the same 16 slabs one launch each, in
-     turns, beside the launch floor (an empty kernel, back to back);
+     turns, beside the launch floor (an empty kernel, back to back); M1 at
+     its 512-step f32 chunk;
   3. the bf16 entries (f in bf16, everything else f32) against their
      plain versions on seeded inputs, into outputs filled with NaN: B2,
      B2h, B3 (the band leg's extended band, flags [0, 1, 0]: at 288 x 192
@@ -94,7 +99,7 @@ bound), the card's name and power limit as nvidia-smi gives them, and
 (default build/chip_smoke.json).  With --against DIR (another checkout,
 e.g. the parent commit's ``git archive`` unpacked under build/), phase 2
 also builds DIR's csrc/ and holds every f32 and f64 case's kernel outputs
-bit for bit against that build's.
+bit for bit against that build's (M1's where that build has it).
 """
 
 import argparse
@@ -113,6 +118,11 @@ TIMING_GRID = "2048x2048"
 K = 16                                # the temporal K of the timed calls
 BIG_GRID = ("8192x8192", (64, 128, 8192))
 MESH = (2, 2)     # the mesh of phase 2's B0, B7 and B8 cases
+# M1's grid (the benchmark's carpet12288_c256) and its timed chunk, the
+# auto plan's first of an interval
+MASK_GRID = ("12288x192", dict(c_fraction=16, c_num=256, c_space=48,
+                               ydim=192))
+MASK_STEPS = 512
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 # bytes/s, and float32 and float64 operations/s outside the tensor cores.
@@ -157,6 +167,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                                "cuda_iblb_11_tpu/ops/pallas_step.py:1482"),
     "B2h collide_stream": ("cuda_iblb_11_tpu_torch/csrc/fused_step.cu",
                            "cuda_iblb_11_tpu/ops/pallas_step.py:583"),
+    "M1 overlap_mask": ("cuda_iblb_11_tpu_torch/csrc/overlap_mask.cu",
+                        "none (cuda_iblb_11_tpu/models/cilia.py masks in "
+                        "jnp)"),
 }
 
 
@@ -590,6 +603,76 @@ def case_b8(cfg, f, force, walls, storage, ix, K, dtype):
                            *sizes(f)))
 
 
+def case_m1(cfg, dtype, moved):
+    """The overlap mask of MASK_STEPS steps: the points placed as the
+    model places them, in dtype, or with every x moved by up to a spacing
+    each way first (seeded), so that many pairs meet."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch.models.cilia import CiliaModel
+    from cuda_iblb_11_tpu_torch.ops.overlap_mask import (
+        overlap_mask, overlap_mask_reference,
+    )
+
+    cilia = CiliaModel(cfg, dtype=dtype, device=DEVICE)
+    pos, vel = cilia.kinematics(torch.arange(137, 137 + MASK_STEPS,
+                                             device=DEVICE))
+    if moved:
+        g = torch.Generator(device=DEVICE).manual_seed(5)
+        pos[..., 0] += (torch.rand(pos.shape[:-1], generator=g,
+                                   dtype=pos.dtype, device=DEVICE)
+                        - 0.5) * 2 * cfg.c_space
+    cilia.r_max, r_max = 0, cilia.r_max   # placement only
+    s = cilia.place_and_mask(pos, vel)[0]
+    shape = (MASK_STEPS, cfg.c_num, cfg.length)
+    x = s[..., 0].reshape(shape).contiguous()
+    y = s[..., 1].reshape(shape).contiguous()
+    pts = cfg.c_num * cfg.length
+    return KernelCase(
+        lambda: (overlap_mask(x, y, r_max),),
+        lambda: (overlap_mask_reference(x, y, r_max),), ("eps",),
+        MASK_STEPS * pts * (2 * x.element_size() + 4),
+        MASK_STEPS * 4 * pts * (r_max - 1) * cfg.length)
+
+
+def mask_cases(results, worst, other):
+    """M1 against its plain version (and the other build's, where it has
+    the kernel), bit for bit; the f32 beat case, for the timing."""
+    import torch
+
+    from cuda_iblb_11_tpu_torch import SimConfig
+    from cuda_iblb_11_tpu_torch.ops import _kernels
+
+    gname, kw = MASK_GRID
+    cfg = SimConfig(**kw)
+    theirs_has = other is not None and hasattr(other.lib,
+                                               "iblb_overlap_mask_f32")
+    timed = None
+    for dt in ("float32", "float64"):
+        for moved in (False, True):
+            kc = case_m1(cfg, getattr(torch, dt), moved)
+            got, want = kc.kern()[0], kc.plain()[0]
+            same = torch.equal(got, want)
+            if theirs_has:
+                with _kernels.using(other):
+                    same = same and torch.equal(kc.kern()[0], got)
+            off = int((got == 0).sum())
+            case = ("moved points" if moved else "the beat") + \
+                f", {MASK_STEPS} steps"
+            results.append(dict(kernel="M1 overlap_mask", grid=gname,
+                                dtype=dt, case=case, bit_identical=same,
+                                nodes_off=off))
+            print(f"  M1 overlap_mask {gname} {dt} {case}: bit-identical "
+                  f"{same}, nodes off {off} of {got.numel()}", flush=True)
+            check(same, f"M1 {gname} {dt} {case}: not the plain mask")
+            check(not moved or off > 0, f"M1 {gname} {dt} {case}: no "
+                                        "node off")
+            if timed is None:
+                timed = kc
+    worst["M1 overlap_mask"] = 0.0
+    return timed
+
+
 def phase_kernels(record, other=None):
     """Phase 2; with ``other`` (another checkout's kernel library), every
     case's kernel outputs also bit for bit against that build's."""
@@ -805,6 +888,7 @@ def phase_kernels(record, other=None):
                 del b7
             del f, force
             torch.cuda.empty_cache()
+    m1 = mask_cases(results, worst, other)
     check(set(worst) == set(KERNELS),
           f"kernels held: {sorted(worst)}")
     check(set(timed_big) == {"B4 temporal_bulk", "B5 band_super",
@@ -836,6 +920,10 @@ def phase_kernels(record, other=None):
     timings = {kname: time_case(kname, kc, f32,
                                 10 if kname in slow else 50, 3, worst)
                for kname, kc in timed.items()}
+    timings["M1 overlap_mask"] = time_case(
+        "M1 overlap_mask", m1, f"{MASK_GRID[0]} f32, {MASK_STEPS} steps",
+        50, 3, worst)
+    del m1
     timings_big = {kname: time_case(kname, kc, f"{big_name} f32 deviatoric",
                                     10, 1, worst)
                    for kname, kc in timed_big.items()}

@@ -19,6 +19,10 @@ import torch
 
 from cuda_iblb_11_tpu_torch.core.config import SimConfig
 from cuda_iblb_11_tpu_torch.core.lattice import PI_REF
+from cuda_iblb_11_tpu_torch.ops.overlap_mask import (
+    overlap_mask, overlap_mask_reference,
+)
+from cuda_iblb_11_tpu_torch.utils.spans import span
 
 BEAT_SCALE = 111.0
 FINE_SAMPLES = 9600
@@ -101,10 +105,15 @@ def beat_x_bound(length: int, pattern: str = "no_mucus") -> float:
 
 
 class CiliaModel:
-    """Batched beat kinematics for all cilia on one device."""
+    """Batched beat kinematics for all cilia on one device.  ``backend``
+    "cuda" masks with the hand kernel (ops/overlap_mask.py), "torch" with
+    its plain version, as the simulations choose their kernels."""
 
     def __init__(self, cfg: SimConfig, dtype=torch.float32,
-                 pattern: str = "no_mucus", device="cpu"):
+                 pattern: str = "no_mucus", device="cpu",
+                 backend: str = "torch"):
+        if backend not in ("cuda", "torch"):
+            raise ValueError(f"unknown backend {backend!r} (cuda|torch)")
         self.cfg = cfg
         self.dtype = dtype          # placement / IB dtype (>= f32)
         self.hp = torch.float64     # kinematics dtype
@@ -123,6 +132,8 @@ class CiliaModel:
         # n=0 term is a_0/2: halve the n=0 column (b_0 = 0 in all patterns)
         self.scale = t([0.5] + [1.0] * (N_HARMONICS - 1))
         self.r_max = 2 * cfg.length // cfg.c_space
+        self._mask = (overlap_mask_reference if backend == "torch"
+                      else overlap_mask)
 
     def _phase(self, total):
         # reference quirk (main.cu:102-103): phase stays T (not 0) when the
@@ -194,13 +205,12 @@ class CiliaModel:
         s = torch.stack([x, y], dim=-1)                       # [..., c, n, 2]
         # node j of cilium m is off if within < 1 lattice unit (both axes)
         # of any node of cilia m-1 .. m-(r_max-1), cyclically
-        eps = torch.ones(x.shape, dtype=torch.int32, device=x.device)
-        for r in range(1, self.r_max):
-            xo = torch.roll(x, r, dims=-2)   # cilium (m - r) mod c_num
-            yo = torch.roll(y, r, dims=-2)
-            close = ((xo[..., None, :] - x[..., :, None]).abs() < 1.0) & \
-                    ((yo[..., None, :] - y[..., :, None]).abs() < 1.0)
-            eps = torch.where(close.any(-1), torch.zeros_like(eps), eps)
+        if self.r_max > 1:
+            with span("iblb.overlap_mask", x.numel() // x.shape[-1]
+                      // cfg.c_num):
+                eps = self._mask(x, y, self.r_max)
+        else:
+            eps = torch.ones(x.shape, dtype=torch.int32, device=x.device)
         lead = pos.shape[:-3]
         ns = cfg.c_num * cfg.length
         return (s.reshape(lead + (ns, 2)), vel.reshape(lead + (ns, 2)),

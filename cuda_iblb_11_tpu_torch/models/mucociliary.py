@@ -41,7 +41,8 @@ the same on the card and on the CPU.
 
 Host spans (utils/spans.py, recorded only while it records; n in steps):
 iblb.run_chunk, inside it iblb.steps_temporal and iblb.steps_single, each
-with its iblb.kinematics (the temporal one also iblb.band_points), and
+with its iblb.kinematics (the temporal one also iblb.band_points; inside
+the kinematics iblb.overlap_mask where cilia overlap, r_max > 1), and
 inside those one span a kernel call (iblb.B2, B2h, B3, B4, B5 or B6; n = K
 for B4-B6) and iblb.ib, the torch IB and flux of one step.
 """
@@ -182,7 +183,7 @@ class MucociliarySim:
             raise ValueError(f"temporal K must be >= 1, got {temporal}")
         self.temporal = self.plan.K if self.plan else 1
         self.cilia = CiliaModel(cfg, dtype=self.aux_dtype, pattern=pattern,
-                                device=self.device)
+                                device=self.device, backend=backend)
 
     def init_state(self) -> FlowState:
         return initial_state(self.cfg, self.dtype, self.device)

@@ -56,6 +56,11 @@ SIGNATURES = {
                             + [_I] * 4 + [_P] * 2),
     "iblb_collide_stream": [_P] * 3 + [_I] * 3 + [_D] * 2 + [_I] * 3 + [_P],
 }
+# the entries on the cilia's points (csrc/overlap_mask.cu), float32 and
+# float64 only: a bf16 run places its points in float32
+SIGNATURES_POINTS = {
+    "iblb_overlap_mask": [_P] * 3 + [_LL] + [_I] * 3 + [_P],
+}
 # the probes (csrc/probes.cu) take float32 only
 SIGNATURES_F32 = {
     "iblb_probe_copy": [_P, _P, _LL, _I, _I, _I, _P],
@@ -83,7 +88,8 @@ def entry_name(name: str, dtype) -> str:
     dtype ever reaches another dtype's kernel."""
     sfx = _suffixes().get(dtype)
     built = (sfx == "_bf16" and name in BF16_ENTRIES
-             or sfx in ("_f32", "_f64") and name in SIGNATURES
+             or sfx in ("_f32", "_f64")
+             and (name in SIGNATURES or name in SIGNATURES_POINTS)
              or sfx == "_f32" and name in SIGNATURES_F32)
     if not built:
         raise NotImplementedError(
@@ -95,17 +101,19 @@ def entry_name(name: str, dtype) -> str:
 class KernelLibrary:
     """The loaded library, with how it was built.  Every entry point is
     bound on load, so a stale or partial build raises here; bf16=False
-    binds only the float32 and float64 entries (another checkout's build,
-    held against this one for those: probe_band_super.other_library)."""
+    leaves out the bf16 entries and points=False the points' entries
+    (another checkout's build, held against this one for the rest:
+    probe_band_super.other_library)."""
 
     def __init__(self, path: str, build_seconds: float, build_log: str,
-                 bf16: bool = True):
+                 bf16: bool = True, points: bool = True):
         self.path = path
         self.build_seconds = build_seconds   # 0.0 when reused from disk
         self.build_log = build_log
         self.lib = ctypes.CDLL(path)
-        entries = [(n + sfx, a) for n, a in SIGNATURES.items()
-                   for sfx in ("_f32", "_f64")]
+        sigs = [SIGNATURES] + ([SIGNATURES_POINTS] if points else [])
+        entries = [(n + sfx, a) for table in sigs
+                   for n, a in table.items() for sfx in ("_f32", "_f64")]
         if bf16:
             entries += [(n + "_bf16", SIGNATURES[n]) for n in BF16_ENTRIES]
         entries += [(n + "_f32", a) for n, a in SIGNATURES_F32.items()]

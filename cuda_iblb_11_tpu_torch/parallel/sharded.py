@@ -305,7 +305,7 @@ class ShardedPallasSim:
         self.temporal_requested = 1
         self.temporal_reason = None
         self.cilia = CiliaModel(cfg, dtype=self.aux_dtype, pattern=pattern,
-                                device=self.device)
+                                device=self.device, backend=backend)
         self.shards = [(iy, ix) for iy in range(self.n_y)
                        for ix in range(self.n_x)]
         self._wire = {}    # the transport's shapes of this sim's moves

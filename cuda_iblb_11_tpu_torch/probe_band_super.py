@@ -63,8 +63,9 @@ RESOURCE_SOURCES = ("band_super.cu", "fused_step.cu", "collide_rows.cu")
 def other_library(root: str) -> _kernels.KernelLibrary:
     """The kernel library built from the csrc/ of the checkout at root,
     into build/kernels/probe_band_super/ (all compiles started
-    together), its bf16 entries bound where it has them (a checkout from
-    before bf16 storage has float32 and float64 entries only)."""
+    together), its bf16 and points entries bound where it has them (a
+    checkout from before bf16 storage has float32 and float64 entries
+    only, one from before the overlap mask no points entries)."""
     src = os.path.join(os.path.abspath(root), "cuda_iblb_11_tpu_torch",
                        "csrc")
     if not os.path.isdir(src):
@@ -81,10 +82,12 @@ def other_library(root: str) -> _kernels.KernelLibrary:
     lib = os.path.join(out, "libiblb_kernels_other.so")
     log += _kernels._run([[nvcc] + _kernels.ARCH + ["-shared", "-o", lib]
                           + objs])
-    try:
-        return _kernels.KernelLibrary(lib, 0.0, log)
-    except RuntimeError:
-        return _kernels.KernelLibrary(lib, 0.0, log, bf16=False)
+    for bf16, points in ((True, True), (True, False), (False, False)):
+        try:
+            return _kernels.KernelLibrary(lib, 0.0, log, bf16, points)
+        except RuntimeError:
+            if not bf16:
+                raise
 
 
 def kernel_resources(log: str, source="band_super.cu") -> dict:

@@ -247,13 +247,13 @@ def _card_cli(comm, out):
     out/cli_<name>, and on two ranks the directory checkpoint written half
     way and resumed, into out/cli_ckpt; returns this rank's launches by
     run and kernel ID."""
-    from test_torch_cuda import counted
+    from test_torch_cuda import counted_with_masks
 
     from cuda_iblb_11_tpu_torch.cli import main
 
     launches = {}
     for name in card_cli(comm.world):
-        rc, launches[name] = counted(main, CARD_CLI[name][0] + [
+        rc, launches[name] = counted_with_masks(main, CARD_CLI[name][0] + [
             "--distributed", "--quiet", "--output",
             os.path.join(out, f"cli_{name}")])
         assert rc == 0, name

@@ -131,9 +131,14 @@ def test_entry_names_refuse_a_dtype_without_a_build(monkeypatch):
     for name, dtype in (("iblb_fused_step", torch.float16),
                         ("iblb_probe_chain", torch.bfloat16),
                         ("iblb_probe_copy", torch.float64),
-                        ("iblb_ghost_temporal", torch.int32)):
+                        ("iblb_ghost_temporal", torch.int32),
+                        ("iblb_overlap_mask", torch.bfloat16)):
         with pytest.raises(NotImplementedError, match="no .* kernel"):
             _kernels.launch(name, dtype, torch.device("cpu"))
     assert loads == []
     assert _kernels.entry_name("iblb_collide_slabs", torch.bfloat16) == \
         "iblb_collide_slabs_bf16"
+    # the points' entries: float32 and float64 (a bf16 run's points are
+    # float32)
+    assert _kernels.entry_name("iblb_overlap_mask", torch.float64) == \
+        "iblb_overlap_mask_f64"

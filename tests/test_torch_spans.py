@@ -33,6 +33,11 @@ LEG = {"band_super_whole": Counter({
     ("iblb.B5", "iblb.steps_temporal", 16): 2}),
     "per_substep": Counter({("iblb.B3", "iblb.steps_temporal", 1): 32,
                             ("iblb.ib", "iblb.steps_temporal", 1): 32})}
+# the overlap mask inside each kinematics where cilia overlap: the
+# channel's, 48 apart (r_max 4); none 128 apart
+MASK = {"384x256": Counter(),
+        "288x192": Counter({("iblb.overlap_mask", "iblb.kinematics", 32): 1,
+                            ("iblb.overlap_mask", "iblb.kinematics", 8): 1})}
 
 
 @pytest.fixture(autouse=True)
@@ -78,7 +83,7 @@ def test_run_chunk_records_the_step_tree(grid):
     spans.stop()
     records = spans.records()
     assert out.it == state.it + 40
-    assert _tree(records) == SINGLE + LEG[leg]
+    assert _tree(records) == SINGLE + LEG[leg] + MASK[grid]
     assert records[0].name == "iblb.run_chunk" and records[0].parent == -1
     for r in records:
         assert r.start_ns <= r.end_ns
